@@ -1,0 +1,14 @@
+"""granite-20b [dense]: llama-arch code model, MQA (kv=1).
+[arXiv:2405.04324; hf]"""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b", family="dense",
+    n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1, d_ff=24576,
+    vocab_size=49152,
+)
+
+
+def smoke_config():
+    return CONFIG.replace(n_layers=2, d_model=96, n_heads=6, n_kv_heads=1,
+                          d_ff=384, vocab_size=256, remat=False)
