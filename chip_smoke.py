@@ -4,16 +4,20 @@
 
 Phases; any failure ends the run with a non-zero exit (nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving path from the checkout's sources;
+  2. build every CUDA kernel of the serving paths from the checkout's
+     sources, one nvcc each, all at once;
   3. each kernel against its plain PyTorch version on the card, at the test
      cases and at the shape the serving path gives it, with its time, the
-     plain version's, a PyTorch library call's (a yardstick only) and its
-     bound (the least time the card could take for the same work);
-  4. full-width tinyllama-1.1b prefill at fp32, flash kernel against the
-     dense path on the same seeded weights and prompt;
-  5. the main path: ``serve`` on full-width tinyllama-1.1b in bf16 with the
-     flash kernel, 8 requests of 1024 prompt tokens + 64 new tokens, with
-     the kernels' launch counts set to 0 just before and read just after;
+     plain version's, a PyTorch library call's where one computes the same
+     function (a yardstick only) and its bound (the least time the card
+     could take for the same work);
+  4. full-width fp32 prefills on the same seeded weights and prompt:
+     tinyllama-1.1b, flash kernel against the dense path; mamba2-2.7b, SSD
+     kernel against the plain scan;
+  5. the main paths, each with every kernel's launch count set to 0 just
+     before and read just after: ``serve`` in bf16, 8 requests of 1024
+     prompt tokens + 64 new tokens, on full-width tinyllama-1.1b through the
+     flash kernel and on full-width mamba2-2.7b through the SSD kernel;
   6. one JSON line of kernel numbers, then the result line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -48,10 +52,30 @@ FLASH_CASES = [
 ]
 SLICE_CASE = (4, 1024, 32, 4, 64, True, 0)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# full-width fp32 prefill, flash vs dense: both sum in fp32, in different
-# orders (online softmax over 64-key tiles vs one softmax over the row);
-# 22 random-weight layers carry those ~1e-7 relative differences into
-# logits of order 1, so agreement is asked to 1e-3 of the largest logit
+# (b, nc, Q, H, P, N): tests/test_torch_ssd.py's cases (the reference's
+# SSD_CASES and the mamba2 smoke config's shape), then the shape of one
+# serving prefill of mamba2-2.7b (batch 4, 1024 tokens in chunks of 256)
+SSD_CASES = [
+    (1, 4, 32, 8, 32, 16),
+    (2, 2, 64, 4, 16, 32),
+    (1, 8, 16, 16, 64, 128),
+    (1, 2, 128, 8, 64, 64),
+    (4, 2, 8, 8, 16, 16),
+]
+SSD_SLICE_CASE = (4, 4, 256, 80, 64, 128)
+# f32: summation orders differ; bf16: the reference's own tolerance, which
+# also covers the kernel's fp32 add of D.x before its one cast. At the
+# serving shape the sums run over 256 steps x 128 states with terms up to
+# the size of the largest output, and two fp32 orders differ there by up to
+# ~8e-6 of it (1.6e-3 against outputs up to 218 on the H100): in f32 that
+# shape's absolute tolerance is 1e-4 of the largest |output|
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# full-width fp32 prefill, kernel vs plain path: both sum in fp32, in
+# different orders (flash: online softmax over 64-key tiles vs one softmax
+# over the row; SSD: 64-row tiles and a warp scan vs whole-chunk einsums and
+# cumsum); 22 or 64 random-weight layers carry those ~1e-7 relative
+# differences into the logits, so agreement is asked to 1e-3 of the largest
+# logit
 PREFILL_RTOL = 1e-3
 
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=64)
@@ -88,6 +112,24 @@ def flash_bound(torch, case, dtype):
     nbytes = B * S * (2 * H + 2 * KV) * hd * (2 if dtype == "bfloat16" else 4)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_bound(case, dtype):
+    """(ms, "bytes" | "operations", fp32 CUDA-core ms): the larger of the
+    traffic (x, dt, la, B, C, D read once, y and h_last written once) over
+    the memory rate and the work over the peak rate for x's type. The work
+    is C.B^T over the causal pairs once per (batch, chunk), and per head
+    the intra-chunk product over the causal pairs, the inter-chunk product
+    and the state update, 2 FLOPs a multiply-add."""
+    b, nc, Q, H, P, N = case
+    pairs = Q * (Q + 1) // 2
+    flops = 2 * b * nc * (pairs * N + H * (pairs * P + 2 * Q * N * P))
+    xb = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * nc * Q * H * P * xb + 4 * (2 * b * nc * Q * H + 2 * b * nc * Q * N
+                                                 + H + b * H * N * P))
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, by, flops / PEAK_FLOPS["float32"] * 1e3
 
 
 def build_all(kernels):
@@ -147,6 +189,120 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0):
     return row
 
 
+def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0):
+    b, nc, Q, H, P, N = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    x = (randn(b, nc, Q, H, P) * 0.5).to(getattr(torch, dtype))
+    dt = torch.nn.functional.softplus(randn(b, nc, Q, H))
+    B, C = randn(b, nc, Q, N), randn(b, nc, Q, N)
+    la = dt * -torch.exp(randn(H) * 0.2)
+    D = 1 + 0.1 * randn(H)
+    y, h = ops.ssd_scan(x, dt, B, C, la, D)
+    ry, rh = ssd_scan_ref(x, dt, B, C, la, D)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    err = 0.0
+    for out, ref in ((y.float(), ry.float()), (h, rh)):
+        err = max(err, (out - ref).abs().max().item())
+        atol = tol * (ref.abs().max().item()
+                      if case == SSD_SLICE_CASE and dtype == "float32" else 1.0)
+        if ((out - ref).abs() > atol + tol * ref.abs()).any() or not torch.isfinite(out).all():
+            raise AssertionError(f"ssd {case} {dtype}: max |err| {err:.3g} over "
+                                 f"tolerance {atol:.3g} + {tol} |ref|")
+    bound_ms, bound_by, fp32_ms = ssd_bound(case, dtype)
+    row = {"max_abs_err": err,
+           "ms": cuda_ms(torch, lambda: ops.ssd_scan(x, dt, B, C, la, D)),
+           "plain_ms": cuda_ms(torch, lambda: ssd_scan_ref(x, dt, B, C, la, D)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           # no single PyTorch call computes the SSD scan
+           "library_ms": None}
+    print(f"[ssd] b,nc,Q,H,P,N={case} {dtype}: max|err| {err:.3g} (tol {tol}); "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / row['ms']:.2f}% "
+          f"of bound; fp32 CUDA-core ceiling {fp32_ms:.4f} ms, "
+          f"{100 * fp32_ms / row['ms']:.1f}% of it")
+    return row
+
+
+def check_prefill(torch, np, Model, cfg32, flag, counter):
+    """Full-width fp32 prefill at B=1, S=1024 on one set of seeded weights,
+    with ``flag`` on (through the kernel) and off (the plain path)."""
+    params = Model(cfg32).init(0, device="cuda")
+    prompt = np.random.default_rng(0).integers(0, cfg32.vocab_size, size=(1, 1024))
+    batch = {"tokens": torch.from_numpy(prompt).cuda()}
+    n0 = counter.launches
+    lk, _ = Model(cfg32.replace(**{flag: True})).prefill(params, batch, 1024)
+    n_kernel = counter.launches - n0
+    lp, _ = Model(cfg32.replace(**{flag: False})).prefill(params, batch, 1024)
+    torch.cuda.synchronize()
+    diff = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    print(f"[prefill] {cfg32.name} fp32 B=1 S=1024: {flag} on vs off max|diff| "
+          f"{diff:.3g}, max|logit| {scale:.3g}, relative {diff / scale:.3g} "
+          f"(limit {PREFILL_RTOL}), kernel launches {n_kernel}")
+    if n_kernel != cfg32.n_layers:
+        raise AssertionError(f"prefill launched the kernel {n_kernel} times, "
+                             f"expected {cfg32.n_layers}")
+    if not (torch.isfinite(lk).all() and diff <= PREFILL_RTOL * scale):
+        raise AssertionError(f"the {flag} prefills disagree: {diff:.3g} > "
+                             f"{PREFILL_RTOL} * {scale:.3g}")
+    del params, lk, lp
+    torch.cuda.empty_cache()
+
+
+def serve_path(torch, serve_mod, Model, cfg, kernels):
+    """One main path: ``serve`` with every launch count set to 0 just before
+    and read just after. Checks every logits tensor, the completions and
+    the trace; returns the launch counts."""
+    trace = ROOT / "build" / "chip_smoke" / f"serve_trace_{cfg.name}.jsonl"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    trace.unlink(missing_ok=True)
+    finite = []   # on the device: is every logits tensor serve sees finite
+
+    class Checked(Model):
+        def prefill(self, *a, **kw):
+            logits, state = super().prefill(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits, state
+
+        def decode_step(self, *a, **kw):
+            logits, state = super().decode_step(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits, state
+
+    serve_mod.Model = Checked
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in kernels:
+            k["counter"].launches = 0
+        out = serve_mod.serve(cfg, trace_path=str(trace), device="cuda", **SERVE)
+        torch.cuda.synchronize()
+        launches = {k["name"]: k["counter"].launches for k in kernels}
+    finally:
+        serve_mod.Model = Model
+    peak = torch.cuda.max_memory_allocated()
+    trace_rows = trace.read_text().splitlines()
+    print(f"[serve] {cfg.name} bf16: {out['requests']} requests, "
+          f"{out['new_tokens']} new tokens, {out['tokens_per_s']:.2f} tok/s, "
+          f"wall {out['wall_s']:.3f} s, p50 {out['p50_s']:.4f} s, "
+          f"p99 {out['p99_s']:.4f} s, peak memory {peak / 2**30:.3f} GiB, "
+          f"launches {launches}, trace rows {len(trace_rows)}")
+    if not finite or not torch.stack(finite).all():
+        raise AssertionError(f"{cfg.name}: serve produced non-finite logits")
+    if out["requests"] != SERVE["n_requests"] or len(trace_rows) != SERVE["n_requests"]:
+        raise AssertionError(f"{out['requests']} completions, {len(trace_rows)} trace rows")
+    if any(len(c["tokens"]) != SERVE["max_new"] or
+           not all(0 <= t < cfg.vocab_size for t in c["tokens"])
+           for c in out["completions"]):
+        raise AssertionError("a completion has the wrong length or a token "
+                             "outside the vocabulary")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -156,12 +312,17 @@ def main() -> int:
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import attention_ref, ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
 
     kernels = [{"name": "flash_attention_fwd", "route": "cuda", "path": ops.SOURCE,
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
-                "counter": ops.flash_attention}]
+                "counter": ops.flash_attention},
+               {"name": "ssd_scan_fwd", "route": "cuda", "path": ssd_ops.SOURCE,
+                "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
+                "counter": ssd_ops.ssd_scan}]
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -184,79 +345,31 @@ def main() -> int:
     # each kernel's numbers at the main path's shape, for the kernels line
     rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref,
                                                SLICE_CASE, "bfloat16")}
+    for case in SSD_CASES:
+        for dtype in ("float32", "bfloat16"):
+            check_ssd(torch, ssd_ops, ssd_scan_ref, case, dtype)
+    check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE, "float32")
+    rows["ssd_scan_fwd"] = check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE,
+                                     "bfloat16")
 
-    # 4. full-width fp32 prefill: flash kernel vs dense path
-    cfg32 = get_config("tinyllama-1.1b").replace(dtype=torch.float32)
-    params = Model(cfg32).init(0, device="cuda")
-    prompt = np.random.default_rng(0).integers(0, cfg32.vocab_size, size=(1, 1024))
-    batch = {"tokens": torch.from_numpy(prompt).cuda()}
-    n0 = ops.flash_attention.launches
-    lf, _ = Model(cfg32.replace(use_flash=True)).prefill(params, batch, 1024)
-    n_flash = ops.flash_attention.launches - n0
-    ld, _ = Model(cfg32.replace(use_flash=False)).prefill(params, batch, 1024)
-    torch.cuda.synchronize()
-    diff = (lf - ld).abs().max().item()
-    scale = ld.abs().max().item()
-    print(f"[prefill] tinyllama-1.1b fp32 B=1 S=1024: flash vs dense max|diff| "
-          f"{diff:.3g}, max|logit| {scale:.3g}, flash launches {n_flash}")
-    if n_flash != cfg32.n_layers:
-        raise AssertionError(f"prefill launched the flash kernel {n_flash} times, "
-                             f"expected {cfg32.n_layers}")
-    if not (torch.isfinite(lf).all() and diff <= PREFILL_RTOL * scale):
-        raise AssertionError(f"flash and dense prefill disagree: {diff:.3g} > "
-                             f"{PREFILL_RTOL} * {scale:.3g}")
-    del params, lf, ld
-    torch.cuda.empty_cache()
+    # 4. full-width fp32 prefills: each kernel against the plain path
+    check_prefill(torch, np, Model, get_config("tinyllama-1.1b").replace(
+        dtype=torch.float32), "use_flash", ops.flash_attention)
+    check_prefill(torch, np, Model, get_config("mamba2-2.7b").replace(
+        dtype=torch.float32), "use_ssd_kernel", ssd_ops.ssd_scan)
 
-    # 5. the main path: serve, with every launch count set to 0 around it
-    cfg = get_config("tinyllama-1.1b").replace(use_flash=True)
-    trace = ROOT / "build" / "chip_smoke" / "serve_trace.jsonl"
-    trace.parent.mkdir(parents=True, exist_ok=True)
-    trace.unlink(missing_ok=True)
-    finite = []   # on the device: is every logits tensor serve sees finite
-
-    class Checked(Model):
-        def prefill(self, *a, **kw):
-            logits, state = super().prefill(*a, **kw)
-            finite.append(torch.isfinite(logits).all())
-            return logits, state
-
-        def decode_step(self, *a, **kw):
-            logits, state = super().decode_step(*a, **kw)
-            finite.append(torch.isfinite(logits).all())
-            return logits, state
-
-    serve_mod.Model = Checked
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        for k in kernels:
-            k["counter"].launches = 0
-        out = serve_mod.serve(cfg, trace_path=str(trace), device="cuda", **SERVE)
-        torch.cuda.synchronize()
-        launches = {k["name"]: k["counter"].launches for k in kernels}
-    finally:
-        serve_mod.Model = Model
-    peak = torch.cuda.max_memory_allocated()
+    # 5. the main paths: each kernel's launches on its own serving path
     waves = -(-SERVE["n_requests"] // SERVE["batch"])
-    trace_rows = trace.read_text().splitlines()
-    print(f"[serve] tinyllama-1.1b bf16 flash: {out['requests']} requests, "
-          f"{out['new_tokens']} new tokens, {out['tokens_per_s']:.2f} tok/s, "
-          f"wall {out['wall_s']:.3f} s, p50 {out['p50_s']:.4f} s, "
-          f"p99 {out['p99_s']:.4f} s, peak memory {peak / 2**30:.3f} GiB, "
-          f"launches {launches}, trace rows {len(trace_rows)}")
-    expect = waves * cfg.n_layers
-    if launches["flash_attention_fwd"] != expect:
-        raise AssertionError(f"serve launched the flash kernel "
-                             f"{launches['flash_attention_fwd']} times, expected {expect}")
-    if not finite or not torch.stack(finite).all():
-        raise AssertionError("serve produced non-finite logits")
-    if out["requests"] != SERVE["n_requests"] or len(trace_rows) != SERVE["n_requests"]:
-        raise AssertionError(f"{out['requests']} completions, {len(trace_rows)} trace rows")
-    if any(len(c["tokens"]) != SERVE["max_new"] or
-           not all(0 <= t < cfg.vocab_size for t in c["tokens"])
-           for c in out["completions"]):
-        raise AssertionError("a completion has the wrong length or a token "
-                             "outside the vocabulary")
+    launches = {}
+    for arch, flag, name in (("tinyllama-1.1b", "use_flash", "flash_attention_fwd"),
+                             ("mamba2-2.7b", "use_ssd_kernel", "ssd_scan_fwd")):
+        cfg = get_config(arch).replace(**{flag: True})
+        got = serve_path(torch, serve_mod, Model, cfg, kernels)
+        expect = {k["name"]: waves * cfg.n_layers if k["name"] == name else 0
+                  for k in kernels}
+        if got != expect:
+            raise AssertionError(f"{arch} serve launched {got}, expected {expect}")
+        launches[name] = got[name]
 
     # 6. kernel numbers, then the result line
     print(json.dumps({"kernels": [

@@ -3,9 +3,10 @@
 The JAX tree (``repro.models.Model(cfg).init(key)[0]``) is a nested dict
 whose ``layers`` leaves are stacked on a leading ``(n_layers,)`` axis. The
 port keeps every per-layer shape of the reference, so conversion is a
-rename (``layers/attn/q`` -> ``layers.{i}.attn.q``) plus a split of that
-axis. Both directions go through numpy; bf16 travels as ``ml_dtypes``'
-``bfloat16``, the dtype JAX hands to numpy.
+rename (``layers/attn/q`` -> ``layers.{i}.attn.q``; for the SSM family
+``layers/in_x`` -> ``layers.{i}.in_x``) plus a split of that axis. Both
+directions go through numpy; bf16 travels as ``ml_dtypes``' ``bfloat16``,
+the dtype JAX hands to numpy.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .models.model import SSM
 from .models.transformer import Transformer
 
 
@@ -54,15 +56,17 @@ def state_dict_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
-def from_jax(cfg, tree, device=None) -> Transformer:
-    """A :class:`Transformer` on ``device`` (default: CUDA) holding the JAX
-    weights."""
-    model = Transformer(cfg, device=resolve_device(device))
+def from_jax(cfg, tree, device=None) -> Transformer | SSM:
+    """The port's model for ``cfg.family`` (an :class:`SSM` for ``ssm``, a
+    :class:`Transformer` otherwise) on ``device`` (default: CUDA) holding
+    the JAX weights."""
+    cls = SSM if cfg.family == "ssm" else Transformer
+    model = cls(cfg, device=resolve_device(device))
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     return model
 
 
-def to_jax(model: Transformer) -> dict:
+def to_jax(model: Transformer | SSM) -> dict:
     """The JAX param tree (numpy leaves, layers stacked) of a port model."""
     tree: dict = {}
     stacked: dict[str, list] = {}

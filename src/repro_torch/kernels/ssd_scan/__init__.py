@@ -1,0 +1,2 @@
+from .ops import ssd_scan
+from .ref import ssd_scan_ref

@@ -1,0 +1,318 @@
+// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), CUDA C++ on CUDA cores.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
+// (_ssd_kernel, launched by ssd_scan_fwd). For each chunk of Q steps, in
+// order, with the fp32 state h (N, P) carried from chunk to chunk:
+//   lcum = cumsum(la)                              log-decay up to each step
+//   y    = ((C.B^T) o L).(x*dt)                    L[i,j] = exp(lcum_i - lcum_j), j <= i
+//        + (C.h) * exp(lcum)                       the state before this chunk
+//        + D * x                                   added in fp32, then one cast
+//   h    = h * exp(lcum_last) + B^T.(x*dt*exp(lcum_last - lcum))
+// and h_last is the state after the last chunk. As in the TPU kernel, D.x is
+// added in fp32 before the one cast to x's dtype (the plain version casts y
+// first: they differ by at most one rounding of the output type).
+//
+// What bounds it on the H100: at the mamba2-2.7b serving shape (b=4, nc=4,
+// Q=256, H=80, P=64, N=128, x bf16) the function moves ~101 MB (x read and y
+// written dominate) and needs ~16.3 GFLOP, so its bound is set by bytes,
+// ~0.030 ms. This first version is simple and exact: every product runs as
+// fp32 FMAs on the CUDA cores (67 TFLOP/s peak), and each block recomputes
+// C.B^T for its own head (full 64 x 64 tiles on the diagonal), ~31 GFLOP in
+// all, so it stays far above its bound. Tensor cores (wgmma), TMA and a C.B^T
+// shared across heads are later work.
+//
+// Design. The TPU grid's sequential chunk axis becomes a loop inside the
+// block: one block of 256 threads owns one (batch, head, P-tile of <= 64
+// columns) and walks the chunks itself, with the state in shared memory.
+// The columns p of h and y are independent, so P-tiles need no exchange. A
+// (Q, Q) fp32 tile would be 256 KB at Q = 256, over the 227 KB a block may
+// use, so the chunk is cut into 64-row tiles: for each row tile i, the
+// inter-chunk term, then for each column tile j <= i the weights
+// (C_i.B_j^T) o L (exp taken only where j <= i: exp of a positive segment can
+// overflow, and inf * 0 would be NaN) and their product with x_j*dt_j. Then
+// the state update over all column tiles, in registers, written back once
+// every read of the old state is behind a barrier. Each thread computes 4x4
+// micro-tiles from float4 reads of shared memory; C and B tiles are stored
+// transposed ([n][row]) for the products over n, B natural ([row][n]) for
+// the state update.
+//
+// Entry point: ssd_fwd(...) with a plain C interface (loaded with ctypes),
+// launching on the given stream and returning cudaGetLastError().
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int NT = 256;       // threads per block
+constexpr int TILE = 64;      // rows of a chunk tile
+constexpr int QMAX = 256;     // longest chunk taken
+constexpr int NMAX = 128;     // largest state dimension taken
+constexpr int PTMAX = 64;     // widest P-tile
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[k][l] += a[k] * b[l]
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4 a, const float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) acc[k][l] = fmaf(av[k], bv[l], acc[k][l]);
+}
+
+// rows [r0, r0 + TILE) of a (Q, N) chunk of B or C, transposed into dst[n][r];
+// rows at or past Q are zero
+__device__ __forceinline__ void load_transposed(float* dst, const float* src, int r0,
+                                                int Q, int N, int tid) {
+  for (int e = tid; e < TILE * (N / 4); e += NT) {
+    const int r = e % TILE, n = 4 * (e / TILE);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < Q) v = ld4(src + static_cast<long long>(r0 + r) * N + n);
+    dst[(n + 0) * TILE + r] = v.x;
+    dst[(n + 1) * TILE + r] = v.y;
+    dst[(n + 2) * TILE + r] = v.z;
+    dst[(n + 3) * TILE + r] = v.w;
+  }
+}
+
+// xs[c][p] = x[j0 + c, p] * dt[j0 + c] for the block's head and P-tile
+template <typename T>
+__device__ __forceinline__ void load_xdt(float* xs, const T* x, const float* dts,
+                                         long long row0, int j0, int Q, int H, int h,
+                                         int P, int p_base, int PT, int tid) {
+  for (int e = tid; e < TILE * PT; e += NT) {
+    const int c = e / PT, p = e % PT;
+    xs[e] = j0 + c < Q
+                ? to_f32(x[((row0 + j0 + c) * H + h) * P + p_base + p]) * dts[j0 + c]
+                : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ Bm, const float* __restrict__ Cm,
+               const float* __restrict__ la, const float* __restrict__ Dv,
+               T* __restrict__ y, float* __restrict__ h_last,
+               int nc, int Q, int H, int P, int N, int PT) {
+  extern __shared__ __align__(16) float smem[];
+  float* lc = smem;                  // [QMAX] cumulative log-decay
+  float* dts = lc + QMAX;            // [QMAX] dt
+  float* dec = dts + QMAX;           // [QMAX] exp(lcum_last - lcum)
+  float* ct = dec + QMAX;            // [N][TILE] C row tile, transposed
+  float* bt = ct + N * TILE;         // [N][TILE] B column tile; [TILE][N] in the state update
+  float* hs = bt + N * TILE;         // [N][PT] the state
+  float* xs = hs + N * PT;           // [TILE][PT] x * dt of a column tile
+  float* ws = xs + TILE * PT;        // [TILE][TILE] weights, [c][r]; also a y tile [r][p]
+
+  const int tid = threadIdx.x;
+  const int p_base = blockIdx.x * PT;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const float d_h = Dv[h];
+  // the 4x4 micro-tile of a (TILE x TILE) or (TILE x PT) tile this thread owns
+  const int mr = 4 * (tid % 16);
+  const int mc = 4 * (tid / 16);
+  const bool owns_y = mc < PT;
+  const int nq = N / 4;
+  const int n_state = nq * (PT / 4);     // 4x4 micro-tiles of the state, <= 2 * NT
+  const int n_tiles = (Q + TILE - 1) / TILE;
+
+  for (int e = tid; e < N * PT; e += NT) hs[e] = 0.f;
+
+  for (int ci = 0; ci < nc; ++ci) {
+    const long long row0 = (static_cast<long long>(b) * nc + ci) * Q;
+    const float* Bc = Bm + row0 * N;
+    const float* Cc = Cm + row0 * N;
+    __syncthreads();   // the previous chunk is done with lc and the state
+    if (tid < 32) {    // warp 0: inclusive prefix sum of la over the chunk
+      const int per = (Q + 31) / 32;
+      const int s0 = tid * per, s1 = min(s0 + per, Q);
+      float run = 0.f;
+      for (int s = s0; s < s1; ++s) {
+        run += la[(row0 + s) * H + h];
+        lc[s] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (tid >= off) incl += v;
+      }
+      const float before = incl - run;
+      for (int s = s0; s < s1; ++s) lc[s] += before;
+    }
+    __syncthreads();
+    const float lc_last = lc[Q - 1];
+    for (int s = tid; s < QMAX; s += NT) {
+      const bool v = s < Q;
+      dts[s] = v ? dt[(row0 + s) * H + h] : 0.f;
+      dec[s] = v ? expf(lc_last - lc[s]) : 0.f;
+      if (!v) lc[s] = 0.f;
+    }
+
+    // ---- y, one row tile at a time -------------------------------------
+    for (int it = 0; it < n_tiles; ++it) {
+      const int i0 = it * TILE;
+      __syncthreads();   // ct and ws are free; dts, dec, lc are visible
+      load_transposed(ct, Cc, i0, Q, N, tid);
+      __syncthreads();
+      float acc[4][4] = {};
+      if (owns_y) {      // inter-chunk term from the state before this chunk
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) outer4(acc, ld4(ct + n * TILE + mr), ld4(hs + n * PT + mc));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float e = expf(lc[i0 + mr + k]);
+#pragma unroll
+          for (int l = 0; l < 4; ++l) acc[k][l] *= e;
+        }
+      }
+      for (int jt = 0; jt <= it; ++jt) {   // intra-chunk term, column tiles j <= i
+        const int j0 = jt * TILE;
+        __syncthreads();   // bt, xs, ws are free
+        load_transposed(bt, Bc, j0, Q, N, tid);
+        load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, tid);
+        __syncthreads();
+        float s[4][4] = {};
+#pragma unroll 4
+        for (int n = 0; n < N; ++n) outer4(s, ld4(ct + n * TILE + mr), ld4(bt + n * TILE + mc));
+#pragma unroll
+        for (int l = 0; l < 4; ++l) {
+          const int c = j0 + mc + l;
+          float w[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int r = i0 + mr + k;
+            // exp only where j <= i: a masked exp may overflow, and inf * 0 is NaN
+            w[k] = (c <= r && r < Q) ? s[k][l] * expf(lc[r] - lc[c]) : 0.f;
+          }
+          *reinterpret_cast<float4*>(ws + (mc + l) * TILE + mr) =
+              make_float4(w[0], w[1], w[2], w[3]);
+        }
+        __syncthreads();
+        if (owns_y) {
+#pragma unroll 4
+          for (int c = 0; c < TILE; ++c)
+            outer4(acc, ld4(ws + c * TILE + mr), ld4(xs + c * PT + mc));
+        }
+      }
+      // y tile through shared memory, so that the store is coalesced
+      __syncthreads();
+      if (owns_y) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int l = 0; l < 4; ++l) ws[(mr + k) * PT + mc + l] = acc[k][l];
+      }
+      __syncthreads();
+      for (int e = tid; e < TILE * PT; e += NT) {
+        const int r = e / PT, p = e % PT;
+        if (i0 + r < Q) {
+          const long long off = ((row0 + i0 + r) * H + h) * P + p_base + p;
+          store(y + off, ws[e] + d_h * to_f32(x[off]));
+        }
+      }
+    }
+
+    // ---- state: h * exp(lcum_last) + B^T.(x*dt*exp(lcum_last - lcum)) --
+    float hacc[2][4][4] = {};
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      const int j0 = jt * TILE;
+      __syncthreads();   // bt and xs are free
+      for (int e = tid; e < TILE * nq; e += NT) {
+        const int c = e / nq, n = 4 * (e % nq);
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (j0 + c < Q) {
+          v = ld4(Bc + static_cast<long long>(j0 + c) * N + n);
+          const float d = dec[j0 + c];
+          v.x *= d; v.y *= d; v.z *= d; v.w *= d;
+        }
+        *reinterpret_cast<float4*>(bt + c * N + n) = v;
+      }
+      load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, tid);
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int t = tid + m * NT;
+        if (t < n_state) {
+          const int n0 = 4 * (t % nq), p0 = 4 * (t / nq);
+#pragma unroll 4
+          for (int c = 0; c < TILE; ++c)
+            outer4(hacc[m], ld4(bt + c * N + n0), ld4(xs + c * PT + p0));
+        }
+      }
+    }
+    // every read of the old state (the inter-chunk term) is behind the
+    // barriers above; each thread rewrites only its own elements
+    const float decay = expf(lc_last);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int t = tid + m * NT;
+      if (t < n_state) {
+        const int n0 = 4 * (t % nq), p0 = 4 * (t / nq);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int l = 0; l < 4; ++l) {
+            float* hp = hs + (n0 + k) * PT + p0 + l;
+            *hp = *hp * decay + hacc[m][k][l];
+          }
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int e = tid; e < N * PT; e += NT) {
+    const int n = e / PT, p = e % PT;
+    h_last[((static_cast<long long>(b) * H + h) * N + n) * P + p_base + p] = hs[e];
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
+                   const void* la, const void* D, void* y, void* h_last, int b, int nc,
+                   int Q, int H, int P, int N, cudaStream_t stream) {
+  const int PT = P < PTMAX ? P : PTMAX;
+  const int smem = (3 * QMAX + 2 * N * TILE + N * PT + TILE * PT + TILE * TILE) *
+                   static_cast<int>(sizeof(float));
+  auto kern = ssd_fwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(P / PT, H, b);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(B),
+      static_cast<const float*>(C), static_cast<const float*>(la),
+      static_cast<const float*>(D), static_cast<T*>(y), static_cast<float*>(h_last), nc, Q,
+      H, P, N, PT);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (b,nc,Q,H,P) and y (b,nc*Q,H,P) in fp32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1); dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32;
+// all contiguous, B and C 16-byte aligned. 1 <= Q <= 256; N a multiple of 4
+// up to 128; P a multiple of 4 up to 64, or a multiple of 64.
+extern "C" int ssd_fwd(const void* x, const void* dt, const void* B, const void* C,
+                       const void* la, const void* D, void* y, void* h_last, int b,
+                       int nc, int Q, int H, int P, int N, int is_bf16, void* stream) {
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && Q <= QMAX && H > 0 && N >= 4 &&
+                  N <= NMAX && N % 4 == 0 && P >= 4 && P % 4 == 0 &&
+                  (P <= PTMAX || P % PTMAX == 0);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch<__nv_bfloat16>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N, st)
+              : launch<float>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N, st);
+  return static_cast<int>(err);
+}

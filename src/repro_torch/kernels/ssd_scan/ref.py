@@ -1,0 +1,37 @@
+"""Plain PyTorch version of the Mamba2 SSD chunked scan. Mirror of
+``repro.kernels.ssd_scan.ref``.
+
+Inputs (pre-chunked): x (b,nc,Q,H,P), dt (b,nc,Q,H), B,C (b,nc,Q,N),
+la = dt * A (log-decay per step) (b,nc,Q,H), D (H,).
+Returns y (b, nc*Q, H, P) in x's dtype and the final state (b, H, N, P) in
+fp32 -- the contract of ``models/mamba2.ssd_chunked``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ssd_scan_ref(x, dt, B, C, la, D):
+    b, nc, Q, H, P = x.shape
+    N = B.shape[-1]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    Bf, Cf = B.float(), C.float()
+    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):     # the state is carried from chunk to chunk
+        la_c, x_c, b_c, c_c, dt_c = la[:, c], x[:, c], Bf[:, c], Cf[:, c], dt[:, c]
+        lcum = torch.cumsum(la_c, dim=1)                             # (b,Q,H)
+        seg = lcum[:, :, None, :] - lcum[:, None, :, :]              # (b,Q,Q,H)
+        L = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)
+        w = cb[..., None] * L
+        xdt = x_c.float() * dt_c[..., None]
+        y = torch.einsum("bijh,bjhp->bihp", w, xdt)
+        y = y + torch.einsum("bin,bhnp->bihp", c_c, h) * torch.exp(lcum)[..., None]
+        decay_to_end = torch.exp(lcum[:, -1:, :] - lcum)
+        s_c = torch.einsum("bjn,bjhp->bhnp", b_c, xdt * decay_to_end[..., None])
+        h = h * torch.exp(lcum[:, -1, :])[..., None, None] + s_c
+        ys.append(y)
+    y = torch.stack(ys, dim=1).to(x.dtype).reshape(b, nc * Q, H, P)
+    y = y + (D[:, None] * x.float().reshape(b, nc * Q, H, P)).to(x.dtype)
+    return y, h

@@ -4,6 +4,7 @@ trace dumps run through the I/O-aware runtime (the trace appends are I/O
 tasks overlapping the decode compute). Mirror of ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -37,8 +38,10 @@ def _dump_trace(path, record, prev=None):
 
 def serve(cfg, *, n_requests=8, prompt_len=32, max_new=16, batch=4,
           trace_path=None, seed=0, device=None, params=None):
-    """``params``: a ``Transformer`` (for example converted from JAX);
-    by default the port's own init from ``seed``."""
+    """``params``: the model for ``cfg.family`` (a ``Transformer``, or an
+    ``SSM`` for mamba2), for example converted from JAX; by default the
+    port's own init from ``seed``. For the SSM family ``prompt_len`` must be
+    a multiple of ``cfg.ssm_chunk``, as in the reference."""
     device = resolve_device(device)
     model = Model(cfg)
     if params is None:

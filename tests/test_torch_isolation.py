@@ -35,6 +35,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in out["imported"]
     assert "repro_torch.kernels.flash_attention.ops" in out["imported"]
+    assert "repro_torch.kernels.ssd_scan.ops" in out["imported"]
     assert out["bad"] == []
 
 
@@ -51,9 +52,10 @@ def test_serve_without_device_needs_cuda(monkeypatch):
               max_new=1, batch=1)
 
 
-def test_model_init_without_device_needs_cuda(monkeypatch):
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b"])
+def test_model_init_without_device_needs_cuda(monkeypatch, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        Model(get_smoke_config("tinyllama-1.1b")).init(0)
+        Model(get_smoke_config(arch)).init(0)

@@ -1,0 +1,155 @@
+"""The port's ssd_scan against the JAX package's: on the CPU the port's
+wrapper runs its plain version, the JAX wrapper runs the Pallas kernel in
+interpret mode. The CUDA kernel itself is held against the plain version by
+the test marked ``cuda`` (skipped without a GPU) and by chip_smoke.py.
+
+JAX is imported inside the tests that use it, so that the ``cuda`` tests
+also run where only PyTorch is installed:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_ssd.py``."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.ssd_scan import ops, ssd_scan, ssd_scan_ref
+
+# (b, nc, Q, H, P, N): copied from tests/test_kernels.py
+SSD_CASES = [
+    (1, 4, 32, 8, 32, 16),
+    (2, 2, 64, 4, 16, 32),
+    (1, 8, 16, 16, 64, 128),
+    (1, 2, 128, 8, 64, 64),
+]
+# the mamba2 smoke config's shape (2 chunks), then one serving prefill of
+# mamba2-2.7b (batch 4, 1024 tokens)
+SMOKE_CASE = (4, 2, 8, 8, 16, 16)
+SLICE_CASE = (4, 4, 256, 80, 64, 128)
+# f32: the two sides sum in different orders; bf16: the reference's own
+# tolerance (tests/test_kernels.py), which also covers the one rounding by
+# which the kernel's fp32 D.x add differs from the plain cast-then-add
+DTYPES = [("float32", 1e-4), ("bfloat16", 5e-2)]
+# At SLICE_CASE the sums run over 256 steps x 128 states with terms up to the
+# size of the largest output; two fp32 orders differ there by up to a few
+# 1e-6 of it, so in f32 that case's absolute tolerance is 1e-4 of the largest
+# |output| (the kernel and the plain version differed by 4.4e-4 on the H100)
+
+
+def inputs(case, seed=0):
+    """x, dt, B, C, la, D as float32 numpy arrays, drawn as the reference's
+    tests draw them: dt = softplus(.), la = dt * -exp(.)."""
+    b, nc, Q, H, P, N = case
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, nc, Q, H, P)).astype(np.float32) * 0.5
+    dt = np.logaddexp(rng.standard_normal((b, nc, Q, H)), 0).astype(np.float32)
+    B = rng.standard_normal((b, nc, Q, N)).astype(np.float32)
+    C = rng.standard_normal((b, nc, Q, N)).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H).astype(np.float32) * 0.2)
+    la = (dt * A).astype(np.float32)
+    D = (1 + 0.1 * rng.standard_normal(H)).astype(np.float32)
+    return x, dt, B, C, la, D
+
+
+def as_torch(arrs, dtype, device="cpu"):
+    x, *rest = (torch.from_numpy(a).to(device) for a in arrs)
+    return [x.to(getattr(torch, dtype)), *rest]
+
+
+def f32(t):
+    return np.asarray(t.float().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+@pytest.fixture
+def jx():
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan import ssd_scan as kern
+    from repro.kernels.ssd_scan import ssd_scan_ref as ref
+
+    def inputs(arrs, dtype):
+        x, *rest = (jnp.asarray(a) for a in arrs)
+        return [x.astype(getattr(jnp, dtype)), *rest]
+    return SimpleNamespace(inputs=inputs, kern=kern, ref=ref)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_ssd_matches_jax(case, dtype, tol, jx):
+    b, nc, Q, H, P, N = case
+    arrs = inputs(case)
+    y, h = ssd_scan(*as_torch(arrs, dtype))
+    assert y.dtype == getattr(torch, dtype) and y.shape == (b, nc * Q, H, P)
+    assert h.dtype == torch.float32 and h.shape == (b, H, N, P)
+    jargs = jx.inputs(arrs, dtype)
+    for jy, jh in (jx.kern(*jargs), jx.ref(*jargs)):
+        np.testing.assert_allclose(f32(y), f32(jy), atol=tol, rtol=tol)
+        np.testing.assert_allclose(f32(h), f32(jh), atol=tol, rtol=tol)
+
+
+def test_ssd_state_continuity():
+    """The chunked scan equals a plain step-by-step recurrence, in y and in
+    the final state that seeds decode."""
+    case = b, nc, Q, H, P, N = (1, 2, 16, 4, 8, 8)
+    x, dt, B, C, la, D = (torch.from_numpy(a).double() for a in inputs(case, seed=3))
+    y, h_last = ssd_scan(*as_torch(inputs(case, seed=3), "float32"))
+    S = nc * Q
+    xf, dtf, laf = x.reshape(b, S, H, P), dt.reshape(b, S, H), la.reshape(b, S, H)
+    Bf, Cf = B.reshape(b, S, N), C.reshape(b, S, N)
+    h = torch.zeros((b, H, N, P), dtype=torch.float64)
+    ys = []
+    for t in range(S):
+        h = h * torch.exp(laf[:, t])[..., None, None] + torch.einsum(
+            "bn,bhp->bhnp", Bf[:, t], xf[:, t] * dtf[:, t][..., None])
+        ys.append(torch.einsum("bn,bhnp->bhp", Cf[:, t], h) + D[:, None] * xf[:, t])
+    np.testing.assert_allclose(f32(h_last), f32(h), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(f32(y), f32(torch.stack(ys, 1)), atol=1e-4, rtol=1e-4)
+
+
+def test_cpu_calls_are_not_counted_as_launches():
+    before = ops.ssd_scan.launches
+    ssd_scan(*as_torch(inputs(SSD_CASES[0]), "float32"))
+    assert ops.ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("bad", ["rank", "x_dtype", "B_dtype", "shape", "device_mix", "meta"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, dt, B, C, la, D = as_torch(inputs(SSD_CASES[1]), "float32")
+    if bad == "rank":
+        x = x[0]
+    elif bad == "x_dtype":
+        x = x.half()
+    elif bad == "B_dtype":
+        B = B.to(torch.bfloat16)
+    elif bad == "shape":
+        C = C[..., :-4]
+    elif bad == "device_mix":
+        D = D.to("meta")
+    else:
+        x, dt, B, C, la, D = (t.to("meta") for t in (x, dt, B, C, la, D))
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, B, C, la, D)
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CASES + [SMOKE_CASE, SLICE_CASE])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_cuda_kernel_matches_plain_version(case, dtype, tol, no_tf32):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args = as_torch(inputs(case), dtype, "cuda")
+    before = ops.ssd_scan.launches
+    y, h = ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    ry, rh = ssd_scan_ref(*args)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    for out, ref in ((f32(y), f32(ry)), (f32(h), f32(rh))):
+        scale = np.abs(ref).max() if (case, dtype) == (SLICE_CASE, "float32") else 1.0
+        np.testing.assert_allclose(out, ref, atol=tol * scale, rtol=tol)
