@@ -4,11 +4,14 @@
 
 Phases; any failure ends the run with a non-zero exit (nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel of the serving paths from the checkout's
-     sources, one nvcc each, all at once;
+  2. build every CUDA source of the serving paths from the checkout (flash
+     attention: the bf16/fp16 tensor-core kernel and the exact fp32 one;
+     the SSD scan), one nvcc each, all at once, with ptxas's registers and
+     spills;
   3. each kernel against its plain PyTorch version on the card, at the test
-     cases and at the shape the serving path gives it, with its time, the
-     plain version's, a PyTorch library call's where one computes the same
+     cases (flash: every dtype route, and the tile-boundary cases) and at
+     the shape the serving path gives it; at that shape its time, the plain
+     version's, a PyTorch library call's where one computes the same
      function (a yardstick only) and its bound (the least time the card
      could take for the same work);
   4. full-width fp32 prefills on the same seeded weights and prompt:
@@ -37,10 +40,11 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
 # and the operation rate by input type (fp32 outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
-# (B, S, H, KV, hd, causal, window): tests/test_torch_flash.py's cases, then
-# the shape of one serving prefill of tinyllama-1.1b (batch 4, 1024 tokens)
+# (B, S, H, KV, hd, causal, window): tests/test_torch_flash.py's cases, its
+# tile-boundary cases, then the shape of one serving prefill of
+# tinyllama-1.1b (batch 4, 1024 tokens)
 FLASH_CASES = [
     (1, 128, 4, 4, 64, True, 0),
     (2, 256, 8, 2, 64, True, 0),
@@ -50,8 +54,22 @@ FLASH_CASES = [
     (1, 100, 4, 2, 64, True, 0),
     (2, 100, 4, 4, 32, False, 16),
 ]
+BOUNDARY_CASES = [
+    (1, 1, 8, 1, 64, True, 0),
+    (1, 63, 8, 1, 32, True, 0),
+    (1, 65, 8, 1, 128, True, 0),
+    (2, 127, 8, 1, 64, True, 0),
+    (1, 129, 8, 1, 64, True, 0),
+    (1, 1000, 8, 1, 64, True, 0),
+    (1, 300, 8, 1, 64, True, 100),
+    (1, 129, 8, 1, 64, False, 0),
+]
 SLICE_CASE = (4, 1024, 32, 4, 64, True, 0)
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FLASH_DTYPES = ("float32", "bfloat16", "float16")
+# f32: the exact route, summation orders differ; bf16 / fp16: P and the
+# output are rounded to the input type (fp16 has 3 more mantissa bits than
+# bf16, so bf16's tolerance covers it)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # (b, nc, Q, H, P, N): tests/test_torch_ssd.py's cases (the reference's
 # SSD_CASES and the mamba2 smoke config's shape), then the shape of one
 # serving prefill of mamba2-2.7b (batch 4, 1024 tokens in chunks of 256)
@@ -81,8 +99,15 @@ PREFILL_RTOL = 1e-3
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=64)
 
 
+# ~1 ms of device spin ahead of each timed call (see cuda_ms)
+SPIN_CYCLES = 2_000_000
+
+
 def cuda_ms(torch, fn, reps=20, warmup=3):
-    """Median over CUDA events of one call of ``fn``."""
+    """Median device time of one call of ``fn``, over CUDA events. A spin
+    kernel ahead of the start event keeps the device busy while the host
+    enqueues the call, so that the host's own time (the wrapper, its
+    checks, the launch) is not counted in a kernel of tens of µs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,6 +115,7 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -109,7 +135,7 @@ def flash_bound(torch, case, dtype):
     if window:
         mask = mask & (kp > qp - window)
     flops = 4 * hd * int(mask.sum()) * B * H
-    nbytes = B * S * (2 * H + 2 * KV) * hd * (2 if dtype == "bfloat16" else 4)
+    nbytes = B * S * (2 * H + 2 * KV) * hd * (4 if dtype == "float32" else 2)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -132,23 +158,26 @@ def ssd_bound(case, dtype):
     return max(t_ops, t_bytes) * 1e3, by, flops / PEAK_FLOPS["float32"] * 1e3
 
 
-def build_all(kernels):
-    """Build every kernel's source afresh, one nvcc each, all at once."""
+def build_all(sources):
+    """Build every source afresh, one nvcc each, all at once; prints each
+    kernel's registers and spills as ptxas reports them."""
     from repro_torch.kernels import build
-    for k in kernels:
-        build.library_path(k["path"]).unlink(missing_ok=True)
+    for src in sources:
+        build.library_path(src).unlink(missing_ok=True)
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(kernels)) as ex:
-        logs = [log for _, log in ex.map(lambda k: build.build(k["path"], verbose=True),
-                                          kernels)]
-    for log in logs:
+    with ThreadPoolExecutor(len(sources)) as ex:
+        logs = list(ex.map(lambda src: build.build(src, verbose=True)[1], sources))
+    for src, log in zip(sources, logs):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"[build] {line.strip()}")
+            if any(w in line for w in ("entry function", "registers", "spill", "error",
+                                       "warning", "Performance")):
+                print(f"[build] {Path(src).name}: {line.strip()}")
     return time.monotonic() - t0
 
 
-def check_flash(torch, ops, attention_ref, case, dtype, seed=0):
+def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False):
+    """The kernel of ``dtype``'s route against the plain version; with
+    ``timed``, also its numbers for the kernels line."""
     B, S, H, KV, hd, causal, window = case
     F = torch.nn.functional
     dt = getattr(torch, dtype)
@@ -165,6 +194,10 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0):
     if bad.any() or not torch.isfinite(out).all():
         raise AssertionError(f"flash {case} {dtype}: max |err| {err:.3g} over "
                              f"tolerance {tol}")
+    if not timed:
+        print(f"[flash] B,S,H,KV,hd,causal,window={case} {dtype}: max|err| {err:.3g} "
+              f"(tol {tol})")
+        return None
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if window:
         qp = torch.arange(S, device="cuda")[:, None]
@@ -187,6 +220,25 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0):
           f"sdpa {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"{100 * bound_ms / row['ms']:.1f}% of bound")
     return row
+
+
+def check_flash_masked(torch, ops, dtype):
+    """window=1, causal: each query sees only its own key, so every other key
+    tile is masked for it and must add exactly 0; the own key's p is 1 (up
+    to an fp32 rounding, exactly 1 in the input type) and l is p, so the
+    output is that key's value row, exactly."""
+    B, S, H, KV, hd = 2, 300, 8, 2, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device="cuda").to(dt)
+               for n in (H, KV, KV))
+    out = ops.flash_attention(q, k, v, True, 1)
+    want = v.repeat_interleave(H // KV, dim=2)
+    torch.cuda.synchronize()
+    if not torch.equal(out, want):
+        raise AssertionError(f"flash window=1 {dtype}: output is not the own value "
+                             f"row, max |diff| {(out - want).abs().max().item():.3g}")
+    print(f"[flash] window=1 {dtype}: every row is exactly its own value row")
 
 
 def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0):
@@ -317,7 +369,9 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
 
-    kernels = [{"name": "flash_attention_fwd", "route": "cuda", "path": ops.SOURCE,
+    # the flash row's numbers are those of the bf16 route, the serving path's
+    kernels = [{"name": "flash_attention_fwd", "route": "cuda",
+                "path": ops.route(torch.bfloat16)[0],
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
                 "counter": ops.flash_attention},
                {"name": "ssd_scan_fwd", "route": "cuda", "path": ssd_ops.SOURCE,
@@ -333,18 +387,22 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # 2. build
-    print(f"[build] {len(kernels)} kernel(s) built in {build_all(kernels):.1f} s")
+    sources = [*ops.SOURCES, ssd_ops.SOURCE]
+    print(f"[build] {len(sources)} sources built in {build_all(sources):.1f} s")
 
     # 3. kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for case in FLASH_CASES:
-        for dtype in ("float32", "bfloat16"):
+    for case in FLASH_CASES + BOUNDARY_CASES:
+        for dtype in FLASH_DTYPES:
             check_flash(torch, ops, attention_ref, case, dtype)
-    check_flash(torch, ops, attention_ref, SLICE_CASE, "float32")
+    for dtype in ("bfloat16", "float16"):
+        check_flash_masked(torch, ops, dtype)
+    check_flash(torch, ops, attention_ref, SLICE_CASE, "float32", timed=True)
+    check_flash(torch, ops, attention_ref, SLICE_CASE, "float16", timed=True)
     # each kernel's numbers at the main path's shape, for the kernels line
-    rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref,
-                                               SLICE_CASE, "bfloat16")}
+    rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref, SLICE_CASE,
+                                               "bfloat16", timed=True)}
     for case in SSD_CASES:
         for dtype in ("float32", "bfloat16"):
             check_ssd(torch, ssd_ops, ssd_scan_ref, case, dtype)

@@ -23,7 +23,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the kernel each model's serving path runs: (config flag, device-kernel name)
+# the kernel each model's serving path runs: (config flag, a substring of its
+# device-kernel names; "flash_fwd" matches both flash routes, the bf16/fp16
+# flash_fwd_sm90_kernel and the fp32 flash_fwd_kernel)
 KERNEL = {"tinyllama-1.1b": ("use_flash", "flash_fwd"),
           "mamba2-2.7b": ("use_ssd_kernel", "ssd_fwd")}
 MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
@@ -112,7 +114,8 @@ def main(argv=None) -> int:
     mm_ms = sum(a.self_device_time_total for a in prof.key_averages()
                 if a.key in MATMUL_OPS) / 1e3
     print(f"[prefill] {args.arch} B={args.batch} S={args.prompt_len}: wall {wall:.1f} ms, "
-          f"device busy {busy:.1f} ms; {kname} {kern_ms:.2f} ms over {len(kern)} launches; "
+          f"device busy {busy:.1f} ms; {kname} {kern_ms:.2f} ms over {len(kern)} launches "
+          f"({100 * kern_ms / busy:.1f}% of device busy); "
           f"matrix products {mm_ms:.2f} ms; other {busy - kern_ms - mm_ms:.2f} ms; "
           f"{len(kernels)} kernel launches")
     wall, kernels, prof = profiled(torch, decode)

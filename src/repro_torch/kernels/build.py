@@ -1,10 +1,12 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/*.cu`` file has a plain C interface, so ``nvcc`` builds it into
-a shared library in seconds (PyTorch's headers are never included). The
-library lands in ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of its source, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+a shared library in seconds (PyTorch's headers are never included). A
+source may include the headers beside it and the shared Hopper helpers in
+``kernels/csrc/`` (``hopper.cuh``). The library lands in ``build/kernels/``
+at the root of the checkout (listed in ``.gitignore``), named by a hash of
+its source and of every header it can include, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import subprocess
 from pathlib import Path
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-I", str(SHARED_CSRC)]
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -30,9 +33,18 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+def headers(source: Path, shared: Path = SHARED_CSRC) -> list[Path]:
+    """Every header ``source`` can include: those beside it and the shared
+    ones, in a fixed order."""
+    dirs = dict.fromkeys((Path(source).resolve().parent, Path(shared).resolve()))
+    return [h for d in dirs for h in sorted(d.glob("*.cuh"))]
+
+
+def library_path(source: Path, shared: Path = SHARED_CSRC) -> Path:
+    digest = hashlib.sha256(Path(source).read_bytes())
+    for h in headers(source, shared):
+        digest.update(h.name.encode() + b"\0" + h.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(source: Path, verbose: bool = False) -> tuple[Path, str]:

@@ -1,47 +1,44 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a), fp32, exact, on the CUDA cores.
+//
+// The fp32 route of the port's flash attention; bf16 and fp16 inputs go to
+// the tensor-core kernel in flash_fwd_sm90.cu. wgmma takes no fp32 inputs,
+// and TF32 keeps ~3 decimal digits, too few for the fp32 tolerance of 2e-5,
+// so fp32 stays here.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (_flash_kernel, launched by flash_attention_fwd): GQA attention with an
-// online softmax, scale 1/sqrt(hd), causal / bidirectional / sliding-window
-// mask plus a tail mask at seq_len, fully masked key tiles skipped, fp32
-// running max / denominator / accumulator, rows with no valid key -> 0.
+// (_flash_kernel, launched by flash_attention_fwd) for fp32 inputs: GQA
+// attention with an online softmax, scale 1/sqrt(hd), causal / bidirectional
+// / sliding-window mask plus a tail mask at seq_len, fully masked key tiles
+// skipped, fp32 running max / denominator / accumulator, rows with no valid
+// key -> 0.
 //
 // What bounds it on the H100: the work is 2*B*H*hd*(valid q,k pairs) * 2
 // FLOPs against ~B*S*(2H+2KV)*hd elements of traffic, so at the prefill
-// shapes (S = 1024, hd = 64) it is bound by operations, not bytes. This
-// first version is simple and exact: both products run in fp32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), not on the tensor cores (989 TFLOP/s bf16),
-// so it stays well above its bound. Tensor cores (wgmma) and TMA loads are
-// later work.
+// shapes (S = 1024, hd = 64) it is bound by operations, not bytes. Both
+// products run in fp32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
 // Design: one block of BQ = 64 threads per (64-row q tile, head, batch);
 // each thread owns one query row. The q tile is staged once in shared memory
-// as fp32 (rows padded to HD+1 floats so that thread t reading row t hits
-// distinct banks); each K/V tile of BK keys is staged as fp32 and read by
-// all threads at the same address (a broadcast). A thread keeps its BK
-// scores and its HD-wide accumulator in registers: at HD = 128 that is 160
-// floats, which is why q lives in shared memory and BK drops to 32. The
-// probabilities go through shared memory (one padded row per thread) on
-// their way to the P.V product, so that its key loop need not be unrolled.
-// Key tiles outside the causal / window reach of the whole q tile are
-// skipped, the same reachability rule as the TPU kernel.
+// (rows padded to HD+1 floats so that thread t reading row t hits distinct
+// banks); each K/V tile of BK keys is staged and read by all threads at the
+// same address (a broadcast). A thread keeps its BK scores and its HD-wide
+// accumulator in registers: at HD = 128 that is 160 floats, which is why q
+// lives in shared memory and BK drops to 32. The probabilities go through
+// shared memory (one padded row per thread) on their way to the P.V product,
+// so that its key loop need not be unrolled. Key tiles outside the causal /
+// window reach of the whole q tile are skipped, the same reachability rule
+// as the TPU kernel.
 //
 // Entry point: flash_fwd(...) with a plain C interface (loaded with ctypes),
 // launching on the given stream and returning cudaGetLastError().
 #include <cmath>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int BQ = 64;               // query rows per block, one per thread
 constexpr float NEG_INF = -1e30f;    // the TPU kernel's mask value
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ bool key_valid(int kp, int row, int S, int causal, int window) {
   bool ok = kp < S;
@@ -50,10 +47,10 @@ __device__ __forceinline__ bool key_valid(int kp, int row, int S, int causal, in
   return ok;
 }
 
-template <typename T, int HD, int BK>
+template <int HD, int BK>
 __global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int S, int H, int KV, int causal, int window, float scale) {
   extern __shared__ float smem[];
   constexpr int QS = HD + 1, PS = BK + 1;
@@ -72,7 +69,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < BQ * HD; i += BQ) {
     const int r = i / HD, c = i % HD, s = q0 + r;
     q_s[r * QS + c] =
-        s < S ? to_f32(q[(((long long)b * S + s) * H + h) * HD + c]) : 0.f;
+        s < S ? q[(((long long)b * S + s) * H + h) * HD + c] : 0.f;
   }
 
   // keys any row of this q tile can reach: [k_lo, k_hi)
@@ -89,8 +86,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * HD; i += BQ) {
       const int s = k0 + i / HD;
       const long long off = (((long long)b * S + s) * KV + kvh) * HD + i % HD;
-      k_s[i] = s < S ? to_f32(k[off]) : 0.f;
-      v_s[i] = s < S ? to_f32(v[off]) : 0.f;
+      k_s[i] = s < S ? k[off] : 0.f;
+      v_s[i] = s < S ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -141,49 +138,45 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   for (int i = tid; i < BQ * HD; i += BQ) {
     const int r = i / HD, c = i % HD, s = q0 + r;
-    if (s < S) store(o + (((long long)b * S + s) * H + h) * HD + c, q_s[r * QS + c]);
+    if (s < S) o[(((long long)b * S + s) * H + h) * HD + c] = q_s[r * QS + c];
   }
 }
 
-template <typename T, int HD, int BK>
+template <int HD, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
                    int S, int H, int KV, int causal, int window, cudaStream_t stream) {
   const int smem =
       (BQ * (HD + 1) + BQ * (BK + 1) + 2 * BK * HD) * static_cast<int>(sizeof(float));
-  auto kern = flash_fwd_kernel<T, HD, BK>;
+  auto kern = flash_fwd_kernel<HD, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, BQ, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KV, causal, window,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal, window,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
                      int S, int H, int KV, int hd, int causal, int window,
                      cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 64: return launch<T, 64, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 128: return launch<T, 128, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 32: return launch<32, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 64: return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 128: return launch<128, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous, of one dtype:
-// fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1). hd in {32, 64, 128}.
+// q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous fp32.
+// hd in {32, 64, 128}.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, int hd, int causal,
-                         int window, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, window, st)
-              : dispatch<float>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
-  return static_cast<int>(err);
+                         int window, void* stream) {
+  return static_cast<int>(dispatch(q, k, v, o, B, S, H, KV, hd, causal, window,
+                                   static_cast<cudaStream_t>(stream)));
 }

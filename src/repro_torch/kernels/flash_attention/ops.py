@@ -1,15 +1,18 @@
 """Public wrapper for the flash-attention kernel (forward only).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py``
-(``_flash_kernel``, wrapped by ``ops.flash_attention``) with the CUDA C++
-kernel in ``csrc/flash_fwd.cu``. On the H100 the kernel is bound by its
-operations (about 17 GFLOP at B=4, S=1024, H=32, KV=4, hd=64, causal,
-against 38 MB of traffic); this first version runs both products as fp32
-FMAs on the CUDA cores, one thread per query row, and leaves the tensor
-cores to later work. See the note at the head of the source.
+(``_flash_kernel``, wrapped by ``ops.flash_attention``) with two CUDA C++
+kernels, chosen by dtype and by nothing else:
+  - bf16 and fp16: ``csrc/flash_fwd_sm90.cu``, both products on the tensor
+    cores (``wgmma``), K/V tiles loaded by TMA through an mbarrier ring;
+  - fp32: ``csrc/flash_fwd.cu``, exact fp32 FMAs on the CUDA cores
+    (``wgmma`` has no fp32 inputs, and TF32 would miss the fp32 tolerance).
+On the H100 the function is bound by its operations (about 17 GFLOP at B=4,
+S=1024, H=32, KV=4, hd=64, causal, against 38 MB of traffic). See the notes
+at the heads of the sources.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
-tensor launches the kernel or raises. There is no fallback.
+tensor launches its dtype's kernel or raises. There is no fallback.
 """
 from __future__ import annotations
 
@@ -21,18 +24,33 @@ import torch
 from ..build import load
 from .ref import attention_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 HEAD_DIMS = (32, 64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+#: dtype -> (source, C entry point, trailing int arguments before the stream)
+ROUTES = {
+    torch.bfloat16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (0,)),
+    torch.float16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (1,)),
+    torch.float32: (_CSRC / "flash_fwd.cu", "flash_fwd", ()),
+}
+#: every source the wrapper may launch, each built once
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load(SOURCE)
-    fn = lib.flash_fwd
+def route(dtype):
+    """(source, entry point, extra int arguments) of ``dtype``'s kernel;
+    ValueError for a dtype that neither kernel takes."""
+    if dtype not in ROUTES:
+        raise ValueError(f"flash_attention: dtype {dtype} not in {tuple(ROUTES)}")
+    return ROUTES[dtype]
+
+
+def _entry(source, name, n_extra):
+    fn = getattr(load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 + n_extra)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(q, k, v):
@@ -63,21 +81,21 @@ def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
+    source, name, extra = route(q.dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if S == 0 or B == 0:
         raise ValueError("flash_attention: empty batch or sequence")
-    lib = _lib()
+    if name == "flash_fwd_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: TMA needs q, k, v 16-byte aligned")
+    fn = _entry(source, name, len(extra))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
-                            int(q.dtype == torch.bfloat16), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, stream)
     if err:
-        raise RuntimeError(f"flash_fwd: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
     flash_attention.launches += 1
     return out
 

@@ -30,7 +30,24 @@ RAGGED_CASES = [
     (1, 100, 4, 2, 64, True, 0, 64, 64),
     (2, 100, 4, 4, 32, False, 16, 64, 64),
 ]
-DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2)]
+# the ragged edges of the CUDA kernels' tiles (64 keys, 128 query rows) at
+# the serving slice's grouping of 8 query heads a KV head: S on either side
+# of 64 and 128, a single row, a long ragged tail, a window of 100 that
+# crosses 128-row tiles, and one bidirectional case
+BOUNDARY_CASES = [
+    (1, 1, 8, 1, 64, True, 0, 64, 64),
+    (1, 63, 8, 1, 32, True, 0, 64, 64),
+    (1, 65, 8, 1, 128, True, 0, 64, 64),
+    (2, 127, 8, 1, 64, True, 0, 64, 64),
+    (1, 129, 8, 1, 64, True, 0, 64, 64),
+    (1, 1000, 8, 1, 64, True, 0, 128, 128),
+    (1, 300, 8, 1, 64, True, 100, 128, 128),
+    (1, 129, 8, 1, 64, False, 0, 64, 64),
+]
+# f32: summation orders differ. bf16: P and the output are rounded to the
+# input type. fp16 has 3 more mantissa bits than bf16, so bf16's tolerance
+# covers it.
+DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2), ("float16", 2e-2)]
 
 
 def inputs(case, dtype, seed=0):
@@ -73,7 +90,7 @@ def test_flash_matches_jax(case, dtype, tol, jx):
     np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("case", RAGGED_CASES)
+@pytest.mark.parametrize("case", RAGGED_CASES + BOUNDARY_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_ragged_matches_jax_ref(case, dtype, tol, jx):
     B, S, H, KV, hd, causal, win, bq, bk = case
@@ -105,7 +122,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + BOUNDARY_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     if not torch.cuda.is_available():
@@ -123,3 +140,22 @@ def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     np.testing.assert_allclose(f32(out.cpu()), f32(ref.cpu()), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_cuda_masked_keys_add_exactly_zero(dtype):
+    """window=1, causal: each query sees only its own key; every other key,
+    in its tile or in tiles masked for the whole row, must add exactly 0.
+    (Every query in [0, S) sees at least its own key, so a row masked in
+    every tile exists only past S, where nothing is stored.) The own key's
+    p is 1 (the 16-bit route: 1 up to an fp32 rounding, exactly 1 once
+    rounded to the input type), and l is p, so the output is the own value
+    row, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    case = (2, 300, 8, 2, 64, True, 1, 64, 64)
+    q, k, v = (t.cuda() for t in as_torch(inputs(case, dtype, seed=2), dtype))
+    out = flash_attention(q, k, v, True, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, v.repeat_interleave(4, dim=2))
