@@ -14,18 +14,18 @@
 // against 0.011 ms at 3.35 TB/s. So both products run on the tensor cores
 // with wgmma, fed by TMA:
 //   - one block per (64-query tile, head, batch): one consumer warpgroup
-//     and one producer warp, 4 blocks an SM at hd <= 64 (NWG consumer
-//     warpgroups of 64 rows each share a block's K / V tiles; at the
-//     serving shape 1 is as fast as 2 and faster than 3, see
-//     scripts/tune_flash_sm90.py). The grid's slowest axis counts the
-//     query tiles down, so that the blocks with the most key tiles
-//     (causal) start in the first wave;
+//     and one producer warp, 4 blocks an SM at hd <= 64 (at the serving
+//     shape, two or three consumer warpgroups sharing a block's K / V
+//     tiles were no faster). The grid's slowest axis counts the query tiles
+//     down, so that the blocks with the most key tiles (causal) start in
+//     the first wave. The producer loads only the key tiles that some row
+//     of the block reaches, so the consumers skip none;
 //   - the producer warp loads Q once, and K / V tiles of 64 keys through a
 //     ring of 2 stages in shared memory, with TMA: 4-D tensor maps over
 //     (hd, heads, S, B), box (<= 64, 1, rows, 1), so that rows past S
 //     arrive as zeros. A "full" and an "empty" mbarrier guard each stage;
-//   - S = Q.K^T is one wgmma chain per warpgroup, both operands in shared
-//     memory (hd contiguous in both: K-major, no transpose);
+//   - S = Q.K^T is one wgmma chain, both operands in shared memory (hd
+//     contiguous in both: K-major, no transpose);
 //   - the online softmax works on the accumulator fragment in registers. A
 //     row lives in 4 threads, so its max takes two shuffles; its sum stays a
 //     partial sum per thread until the end. Per score it costs one max, one
@@ -46,6 +46,7 @@
 //
 // Entry point: flash_fwd_sm90(...) with a plain C interface (loaded with
 // ctypes), launching on the given stream and returning cudaGetLastError().
+#include <atomic>
 #include <cmath>
 #include <type_traits>
 
@@ -55,11 +56,10 @@ namespace {
 
 using namespace hopper;
 
-constexpr int NWG = 1;                   // consumer warpgroups
-constexpr int BQ = 64 * NWG;             // query rows per block
-constexpr int BK = 64;                   // keys per K / V tile
-constexpr int STAGES = 2;                // depth of the K / V ring
-constexpr int NTHREADS = 128 * NWG + 32; // + one producer warp
+constexpr int BQ = 64;              // query rows per block: one consumer warpgroup
+constexpr int BK = 64;              // keys per K / V tile
+constexpr int STAGES = 2;           // depth of the K / V ring
+constexpr int NTHREADS = 128 + 32;  // + one producer warp
 constexpr float NEG_INF = -1e30f;        // the TPU kernel's initial running max
 // one bit per score register: which (query, key) pairs of a tile are valid
 using ValidMask = std::conditional_t<(BK / 2 > 32), uint64_t, uint32_t>;
@@ -137,7 +137,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BK / 2], float (&m)[2],
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS, HD <= 64 && BK <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S,
@@ -164,14 +164,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 128 * NWG);
+      mbar_init(&empty[s], 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp == 4 * NWG) {
+  if (warp == 4) {
     // producer: one thread starts every load
     if (lane == 0) {
       mbar_arrive_expect_tx(q_full, L::Q_BYTES);
@@ -193,15 +193,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // consumers: warpgroup wg owns query rows [row_lo, row_lo + 64); this
-  // thread holds rows r0 and r0 + 8, columns c0 + 8j + {0, 1} of each tile
-  const int wg = warp / 4;
-  const int row_lo = q0 + 64 * wg, row_hi = row_lo + 63;
-  const int r0 = row_lo + 16 * (warp % 4) + lane / 4;
+  // consumers: the warpgroup owns query rows [q0, q0 + 64); this thread
+  // holds rows r0 and r0 + 8, columns c0 + 8j + {0, 1} of each tile
+  const int row_hi = q0 + BQ - 1;
+  const int r0 = q0 + 16 * warp + lane / 4;
   const int c0 = 2 * (lane % 4);
 
   // Q and K: K-major. V: MN-major, its swizzle atoms along hd BK rows apart.
-  const uint64_t q_desc = make_desc(sq + 64 * wg * L::ROWB, 16, L::GROUPB, L::SWZ);
+  const uint64_t q_desc = make_desc(sq, 16, L::GROUPB, L::SWZ);
   const uint64_t k_desc = make_desc(sk, 16, L::GROUPB, L::SWZ);
   const uint64_t v_desc =
       make_desc(sv, L::NATOM > 1 ? BK * L::ROWB : L::GROUPB, L::GROUPB, L::SWZ);
@@ -215,51 +214,46 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
     const int s = i % STAGES, k0 = t * BK;
     mbar_wait(&full[s], (i / STAGES) & 1);
-    // a tile that no row of this warpgroup reaches adds nothing to it
-    const bool skip = row_lo >= S || (causal && k0 > row_hi) ||
-                      (window && k0 + BK - 1 <= row_lo - window);
-    if (!skip) {
-      // S = Q.K^T, fp32
-      float sc[BK / 2];
+    // S = Q.K^T, fp32
+    float sc[BK / 2];
 #pragma unroll
-      for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
-      wgmma_fence();
+    for (int j = 0; j < BK / 2; ++j) sc[j] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int at = kk * 16 / L::ATOM * L::ROWB, cb = kk * 16 % L::ATOM * 2;
-        Mma<BK>::ss<T, 0, 0>(sc, desc_advance(q_desc, at * BQ + cb),
-                             desc_advance(k_desc, s * L::KV_BYTES + at * BK + cb), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-
-      // the online softmax, masked only where the tile crosses the
-      // diagonal, the window's edge or the end of the sequence
-      float alpha[2];
-      if ((causal && k0 + BK - 1 > row_lo) || (window && k0 <= row_hi - window) ||
-          k0 + BK > S)
-        softmax_step<true>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
-      else
-        softmax_step<false>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
-      // P in the A-operand layout: pa[kk] covers keys 16kk .. 16kk + 15
-      uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int j = 0; j < BK / 2; j += 2) pa[j / 8][j % 8 / 2] = pack2<T>(sc[j], sc[j + 1]);
-
-      // O = alpha * O + P.V
-#pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        Mma<HD>::template rs<T, 1>(
-            acc, pa[kk], desc_advance(v_desc, s * L::KV_BYTES + kk * 16 * L::ROWB), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int at = kk * 16 / L::ATOM * L::ROWB, cb = kk * 16 % L::ATOM * 2;
+      Mma<BK>::ss<T, 0, 0>(sc, desc_advance(q_desc, at * BQ + cb),
+                           desc_advance(k_desc, s * L::KV_BYTES + at * BK + cb), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the online softmax, masked only where the tile crosses the
+    // diagonal, the window's edge or the end of the sequence
+    float alpha[2];
+    if ((causal && k0 + BK - 1 > q0) || (window && k0 <= row_hi - window) ||
+        k0 + BK > S)
+      softmax_step<true>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
+    else
+      softmax_step<false>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
+    // P in the A-operand layout: pa[kk] covers keys 16kk .. 16kk + 15
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 2; j += 2) pa[j / 8][j % 8 / 2] = pack2<T>(sc[j], sc[j + 1]);
+
+    // O = alpha * O + P.V
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) acc[j] *= alpha[(j / 2) % 2];
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      Mma<HD>::template rs<T, 1>(
+          acc, pa[kk], desc_advance(v_desc, s * L::KV_BYTES + kk * 16 * L::ROWB), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
     mbar_arrive(&empty[s]);
   }
 
@@ -278,10 +272,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r)
       *reinterpret_cast<uint32_t*>(so + (lr + 8 * r) * L::OP + 8 * j + c0) =
           pack2<T>(acc[4 * j + 2 * r] / den[r], acc[4 * j + 2 * r + 1] / den[r]);
-  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");  // this warpgroup
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");  // the consumer warpgroup only
   constexpr int CHUNKS = HD / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x % 128; i < 64 * CHUNKS; i += 128) {
-    const int rr = 64 * wg + i / CHUNKS, c = i % CHUNKS, row = q0 + rr;
+  for (int i = threadIdx.x; i < BQ * CHUNKS; i += 128) {
+    const int rr = i / CHUNKS, c = i % CHUNKS, row = q0 + rr;
     if (row < S)
       *reinterpret_cast<uint4*>(o + ((static_cast<long long>(b) * S + row) * H + h) * HD +
                                 8 * c) = *reinterpret_cast<const uint4*>(so + rr * L::OP + 8 * c);
@@ -305,9 +299,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
                              {hd * e, nkv * hd * e, s * nkv * hd * e}, {atom, 1, BK, 1});
   if (err) return err;
   auto kern = flash_fwd_sm90_kernel<T, HD>;
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  if (attr != cudaSuccess) return attr;
+  // the shared-memory limit is set once per device, not on every launch
+  static std::atomic<int> smem_set_on{-1};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess && smem_set_on.load() != dev) {
+    ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (ce == cudaSuccess) smem_set_on.store(dev);
+  }
+  if (ce != cudaSuccess) return ce;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   const float scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(HD)));
   kern<<<grid, NTHREADS, L::SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H, KV, causal,

@@ -30,10 +30,10 @@ RAGGED_CASES = [
     (1, 100, 4, 2, 64, True, 0, 64, 64),
     (2, 100, 4, 4, 32, False, 16, 64, 64),
 ]
-# the ragged edges of the CUDA kernels' tiles (64 keys, 128 query rows) at
+# the ragged edges of the CUDA kernels' tiles (64 keys, 64 query rows) at
 # the serving slice's grouping of 8 query heads a KV head: S on either side
 # of 64 and 128, a single row, a long ragged tail, a window of 100 that
-# crosses 128-row tiles, and one bidirectional case
+# crosses 64- and 128-row tiles, and one bidirectional case
 BOUNDARY_CASES = [
     (1, 1, 8, 1, 64, True, 0, 64, 64),
     (1, 63, 8, 1, 32, True, 0, 64, 64),
@@ -46,8 +46,13 @@ BOUNDARY_CASES = [
 ]
 # f32: summation orders differ. bf16: P and the output are rounded to the
 # input type. fp16 has 3 more mantissa bits than bf16, so bf16's tolerance
-# covers it.
+# covers it against the JAX package on the CPU.
 DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2), ("float16", 2e-2)]
+# the CUDA kernels against the plain version on the card: fp16's rounding is
+# 8x finer than bf16's (one step is ~0.002 at outputs of 2-4, bf16's
+# ~0.016), so its tolerance lies between the two, and a route that rounded
+# anything to bf16 would fail it
+CUDA_DTYPES = [("float32", 2e-5), ("bfloat16", 2e-2), ("float16", 5e-3)]
 
 
 def inputs(case, dtype, seed=0):
@@ -123,7 +128,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + BOUNDARY_CASES)
-@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("dtype,tol", CUDA_DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
