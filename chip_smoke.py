@@ -6,13 +6,15 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA source of the serving paths from the checkout (flash
      attention: the bf16/fp16 tensor-core kernel and the exact fp32 one;
-     the SSD scan), one nvcc each, all at once, with ptxas's registers and
-     spills;
+     the SSD scan: the bf16 TF32 tensor-core kernel and the exact fp32
+     one), one nvcc each, all at once, with ptxas's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at the test
-     cases (flash: every dtype route, and the tile-boundary cases) and at
-     the shape the serving path gives it; at that shape its time (CUDA
-     events around one call; then its device time alone, and its host time
-     a call), the plain version's, a PyTorch library call's where one
+     cases (flash: every dtype route, and the tile-boundary cases; SSD:
+     both routes, the bf16 one also against the CPU model of its TF32
+     roundings) and at the shape the serving path gives it; at that shape
+     its time (CUDA events around one call; then its device time alone,
+     for the SSD scan also with L2 flushed before each call, and its host
+     time a call), the plain version's, a PyTorch library call's where one
      computes the same function (a yardstick only) and its bound (the least
      time the card could take for the same work);
   4. full-width fp32 prefills on the same seeded weights and prompt:
@@ -91,6 +93,14 @@ SSD_SLICE_CASE = (4, 4, 256, 80, 64, 128)
 # ~8e-6 of it (1.6e-3 against outputs up to 218 on the H100): in f32 that
 # shape's absolute tolerance is 1e-4 of the largest |output|
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# bf16 route against its CPU model of the same roundings (ref.ssd_scan_tf32_ref)
+# on the same inputs: |kernel - model| <= 1e-3 max|model| + 1e-2 |model|. The
+# two differ where a tf32 truncation falls on the other side in one of them
+# (a change of 2^-11 of a term, the terms up to the size of the largest
+# output) and by a bf16 rounding of y (2^-8 of it); 5x tighter in relative
+# terms than SSD_TOL, so a slip in a fragment layout or a mask shows even
+# where it stays inside 5e-2
+SSD_MODEL_TOL = (1e-3, 1e-2)
 # full-width fp32 prefill, kernel vs plain path: both sum in fp32, in
 # different orders (flash: online softmax over 64-key tiles vs one softmax
 # over the row; SSD: 64-row tiles and a warp scan vs whole-chunk einsums and
@@ -121,10 +131,11 @@ def cuda_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, reps=20, warmup=3):
+def device_ms(torch, fn, reps=20, warmup=3, before=None):
     """Median device time of one call of ``fn``: a spin kernel of ~1 ms
     ahead of the start event keeps the device busy while the host enqueues
-    the call, so that the host's own time is not counted."""
+    the call, so that the host's own time is not counted. ``before`` is
+    enqueued after the spin, ahead of the start event (an L2 flush)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -133,6 +144,8 @@ def device_ms(torch, fn, reps=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(2_000_000)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
@@ -283,7 +296,17 @@ def check_flash_masked(torch, ops, dtype):
     print(f"[flash] window=1 {dtype}: every row is exactly its own value row")
 
 
-def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0):
+def l2_flushed_ms(torch, fn):
+    """``fn``'s device time with L2 emptied before each call: 128 MB (over
+    twice the H100's 50 MB L2) written ahead of the start event."""
+    junk = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    return device_ms(torch, fn, before=lambda: junk.fill_(1))
+
+
+def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
+    """The kernel of ``dtype``'s route against the plain version and, with
+    ``model`` (bf16), against the CPU model of its roundings on the card;
+    returns its numbers for the kernels line."""
     b, nc, Q, H, P, N = case
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -306,6 +329,18 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0):
         if ((out - ref).abs() > atol + tol * ref.abs()).any() or not torch.isfinite(out).all():
             raise AssertionError(f"ssd {case} {dtype}: max |err| {err:.3g} over "
                                  f"tolerance {atol:.3g} + {tol} |ref|")
+    model_note = ""
+    if model is not None:
+        my, mh = model(x, dt, B, C, la, D)
+        fracs = []
+        for out, ref in ((y.float(), my.float()), (h, mh)):
+            lim = SSD_MODEL_TOL[0] * ref.abs().max() + SSD_MODEL_TOL[1] * ref.abs()
+            fracs.append(((out - ref).abs() / lim).max().item())
+        model_note = (f"; against the tf32 model {max(fracs):.3g} of its tolerance "
+                      f"{SSD_MODEL_TOL[0]} max + {SSD_MODEL_TOL[1]} |model|")
+        if max(fracs) > 1:
+            raise AssertionError(f"ssd {case} {dtype}: kernel and tf32 model differ by "
+                                 f"{max(fracs):.3g} of their tolerance")
     bound_ms, bound_by, fp32_ms = ssd_bound(case, dtype)
     kern = timings(torch, lambda: ops.ssd_scan(x, dt, B, C, la, D))
     row = {"max_abs_err": err, "ms": kern["ms"],
@@ -314,9 +349,15 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0):
            # no single PyTorch call computes the SSD scan
            "library_ms": None,
            "device_ms": kern["device_ms"], "host_ms": kern["host_ms"]}
-    print(f"[ssd] b,nc,Q,H,P,N={case} {dtype}: max|err| {err:.3g} (tol {tol}); "
+    if case == SSD_SLICE_CASE:
+        row["device_l2_flushed_ms"] = l2_flushed_ms(torch, lambda: ops.ssd_scan(x, dt, B, C,
+                                                                                  la, D))
+    print(f"[ssd] b,nc,Q,H,P,N={case} {dtype}: max|err| {err:.3g} (tol {tol}){model_note}; "
           f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}, "
-          f"host {row['host_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+          f"host {row['host_ms']:.4f}"
+          + (f", L2 flushed {row['device_l2_flushed_ms']:.4f}" if "device_l2_flushed_ms" in row
+             else "")
+          + f"), plain {row['plain_ms']:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / row['ms']:.2f}% "
           f"of bound; fp32 CUDA-core ceiling {fp32_ms:.4f} ms, "
           f"{100 * fp32_ms / row['ms']:.1f}% of it")
@@ -409,7 +450,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import attention_ref, ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ssd_scan_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import Model
 
@@ -418,7 +459,8 @@ def main() -> int:
                 "path": ops.route(torch.bfloat16)[0],
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
                 "counter": ops.flash_attention},
-               {"name": "ssd_scan_fwd", "route": "cuda", "path": ssd_ops.SOURCE,
+               {"name": "ssd_scan_fwd", "route": "cuda",
+                "path": ssd_ops.route(torch.bfloat16)[0],
                 "replaces": "src/repro/kernels/ssd_scan/kernel.py:26",
                 "counter": ssd_ops.ssd_scan}]
 
@@ -431,7 +473,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # 2. build
-    sources = [*ops.SOURCES, ssd_ops.SOURCE]
+    sources = [*ops.SOURCES, *ssd_ops.SOURCES]
     print(f"[build] {len(sources)} sources built in {build_all(sources):.1f} s")
 
     # 3. kernels against their plain versions
@@ -447,12 +489,13 @@ def main() -> int:
     # each kernel's numbers at the main path's shape, for the kernels line
     rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref, SLICE_CASE,
                                                "bfloat16", timed=True)}
+    # f32 through the exact route, bf16 through the tf32 tensor-core route
     for case in SSD_CASES:
-        for dtype in ("float32", "bfloat16"):
-            check_ssd(torch, ssd_ops, ssd_scan_ref, case, dtype)
+        check_ssd(torch, ssd_ops, ssd_scan_ref, case, "float32")
+        check_ssd(torch, ssd_ops, ssd_scan_ref, case, "bfloat16", model=ssd_scan_tf32_ref)
     check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE, "float32")
     rows["ssd_scan_fwd"] = check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE,
-                                     "bfloat16")
+                                     "bfloat16", model=ssd_scan_tf32_ref)
 
     # 4. full-width fp32 prefills: each kernel against the plain path
     check_prefill(torch, np, Model, get_config("tinyllama-1.1b").replace(

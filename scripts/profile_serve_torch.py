@@ -25,9 +25,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # the kernel each model's serving path runs: (config flag, a substring of its
 # device-kernel names; "flash_fwd" matches both flash routes, the bf16/fp16
-# flash_fwd_sm90_kernel and the fp32 flash_fwd_kernel)
+# flash_fwd_sm90_kernel and the fp32 flash_fwd_kernel; "ssd_" every kernel of
+# both SSD routes: the bf16 route's C.B^T pass ssd_cb_kernel and its scan
+# ssd_scan_sm90_kernel, two launches a call, and the fp32 ssd_fwd_kernel)
 KERNEL = {"tinyllama-1.1b": ("use_flash", "flash_fwd"),
-          "mamba2-2.7b": ("use_ssd_kernel", "ssd_fwd")}
+          "mamba2-2.7b": ("use_ssd_kernel", "ssd_")}
 MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
 
 

@@ -1,12 +1,15 @@
 // Building blocks shared by the port's Hopper (sm_90a) kernels, as inline PTX:
 //   - mbarriers: init, arrive, arrive with an expected byte count, wait on a
 //     phase parity;
-//   - TMA tile loads (2-D, 4-D) that complete on an mbarrier, and the host
-//     side that encodes their tensor maps;
+//   - TMA tile loads (2-D, 3-D, 4-D) that complete on an mbarrier, 4-D tile
+//     stores, and the host side that encodes their tensor maps;
 //   - the wgmma shared-memory matrix descriptor (32B, 64B, 128B swizzle);
 //   - wgmma fence / commit_group / wait_group;
 //   - wgmma.mma_async m64nNk16 (N = 32, 64, 128), bf16 or f16 inputs, fp32
-//     accumulator, A from shared memory (ss) or from registers (rs).
+//     accumulator, A from shared memory (ss) or from registers (rs);
+//   - wgmma.mma_async m64nNk8 (N = 32, 64, 128), tf32 inputs (raw fp32 in
+//     shared memory or registers), fp32 accumulator, ss or rs;
+//   - the proxy fence between threads' shared-memory stores and wgmma.
 //
 // The tensor map encoder, cuTensorMapEncodeTiled, lives in libcuda. It is
 // looked up at run time through the CUDA runtime's entry-point query, so a
@@ -88,6 +91,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
@@ -97,6 +110,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The reverse: one thread copies a box from shared memory to the tensor;
+// elements outside the tensor are not written. commit / wait as a bulk group:
+// tma_store_wait_read<0>() returns once the box has been read out of shared
+// memory (it may be overwritten), tma_store_wait<0>() once it is written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---- wgmma shared-memory descriptor -----------------------------------------
@@ -130,6 +170,13 @@ __device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) 
 }
 
 // ---- wgmma ordering ---------------------------------------------------------
+
+// after this thread's st.shared to a tile that a wgmma (or TMA) reads next:
+// orders the generic-proxy stores before the async proxy's reads. Every
+// writing thread calls it, then the threads meet at a barrier.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 // before the first wgmma that reads registers or shared memory written since
 __device__ __forceinline__ void wgmma_fence() {
@@ -266,6 +313,53 @@ HOPPER_MMA(128, 64, "66", "%64, %65, p, 1, 1, %67, %68",
 #undef HOPPER_WGMMA_SS
 #undef HOPPER_WGMMA_RS
 
+// ---- wgmma.mma_async m64nNk8, tf32 inputs, fp32 accumulator -----------------
+// The tensor cores read each fp32 operand as tf32: its 10 high mantissa bits,
+// the low 13 ignored (truncated). Both operands are K-major only (the
+// transpose bits exist for 16-bit types alone): the summed index must be
+// contiguous in every shared-memory tile; one k8 step is 32 bytes of a row.
+// The accumulator layout is that of m64nNk16 above. A from registers is NOT
+// that layout: for the 64 x 8 tile, thread t (warp w, lane l, g = l / 4,
+// c = l % 4) holds a[0] = (row 16w + g, k c), a[1] = (row 16w + g + 8, k c),
+// a[2] = (row 16w + g, k c + 4), a[3] = (row 16w + g + 8, k c + 4), each the
+// raw fp32 bits (CuTe's GMMA::ALayout_64x8).
+
+template <int N>
+struct MmaTf32;
+
+#define HOPPER_MMA_TF32(N, ND, SS_ACC, SS_REST, RS_ACC, RS_REST)                      \
+  template <>                                                                        \
+  struct MmaTf32<N> {                                                                \
+    static __device__ __forceinline__ void ss(float (&d)[ND], uint64_t desc_a,      \
+                                              uint64_t desc_b, int accumulate) {    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" SS_ACC ", 0;\n"            \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {"       \
+                   HOPPER_D##ND "}, " SS_REST ";\n}\n"                              \
+                   : HOPPER_OUT##ND(d)                                               \
+                   : "l"(desc_a), "l"(desc_b), "r"(accumulate));                     \
+    }                                                                                \
+    static __device__ __forceinline__ void rs(float (&d)[ND], const uint32_t (&a)[4], \
+                                              uint64_t desc_b, int accumulate) {    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" RS_ACC ", 0;\n"            \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {"       \
+                   HOPPER_D##ND "}, " RS_REST ";\n}\n"                              \
+                   : HOPPER_OUT##ND(d)                                               \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),        \
+                     "r"(accumulate));                                               \
+    }                                                                                \
+  };
+
+// Operands after the N/2 outputs: ss: desc_a, desc_b, accumulate; rs:
+// a[0..3], desc_b, accumulate.
+HOPPER_MMA_TF32(32, 16, "18", "%16, %17, p, 1, 1",
+                "21", "{%16, %17, %18, %19}, %20, p, 1, 1")
+HOPPER_MMA_TF32(64, 32, "34", "%32, %33, p, 1, 1",
+                "37", "{%32, %33, %34, %35}, %36, p, 1, 1")
+HOPPER_MMA_TF32(128, 64, "66", "%64, %65, p, 1, 1",
+                "69", "{%64, %65, %66, %67}, %68, p, 1, 1")
+
+#undef HOPPER_MMA_TF32
+
 // two fp32 values as one register of two 16-bit values, the first in the low half
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -304,13 +398,14 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a dense RANK-d tensor of 16-bit elements: `dims` and
-// `box` innermost first, `strides` the byte strides of dims 1..RANK-1.
-// Rows of the box are `box[0] * 2` bytes and get the matching swizzle
-// (128, 64 or 32 bytes). Out-of-range elements load as zeros. Returns 0 or
+// A tensor map over a dense RANK-d tensor of 16-bit (bf16, fp16) or 32-bit
+// (fp32) elements: `dims` and `box` innermost first, `strides` the byte
+// strides of dims 1..RANK-1 (each a multiple of 16). Rows of the box are
+// `box[0]` elements (2 or 4 bytes each) and get the matching swizzle (128,
+// 64 or 32 bytes). Out-of-range elements load as zeros. Returns 0 or
 // cudaErrorInvalidValue.
 template <int RANK>
-inline int make_tensor_map(CUtensorMap* map, bool f16, const void* base,
+inline int make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
                            const uint64_t (&dims)[RANK], const uint64_t (&strides)[RANK - 1],
                            const uint32_t (&box)[RANK]) {
   const EncodeTiledFn encode = encode_tiled();
@@ -323,15 +418,26 @@ inline int make_tensor_map(CUtensorMap* map, bool f16, const void* base,
     e[i] = 1;
     if (i < RANK - 1) s[i] = strides[i];
   }
-  const int row_bytes = static_cast<int>(box[0]) * 2;
+  const int elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const int row_bytes = static_cast<int>(box[0]) * elem_bytes;
   const CUtensorMapSwizzle swz = row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult res = encode(
-      map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, RANK,
-      const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode(map, type, RANK, const_cast<void*>(base), d, s, b, e,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : cudaErrorInvalidValue;
+}
+
+// the same over 16-bit elements: fp16 if `f16`, else bf16
+template <int RANK>
+inline int make_tensor_map(CUtensorMap* map, bool f16, const void* base,
+                           const uint64_t (&dims)[RANK], const uint64_t (&strides)[RANK - 1],
+                           const uint32_t (&box)[RANK]) {
+  return make_tensor_map<RANK>(
+      map, f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base,
+      dims, strides, box);
 }
 
 }  // namespace hopper

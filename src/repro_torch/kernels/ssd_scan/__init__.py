@@ -1,2 +1,2 @@
 from .ops import ssd_scan
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_ref, ssd_scan_tf32_ref

@@ -1,25 +1,23 @@
-// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), CUDA C++ on CUDA cores.
+// Mamba2 SSD chunked scan, forward, fp32 x, for Hopper (sm_90a): CUDA C++ on
+// the CUDA cores, exact fp32. This is the fp32 route only; bf16 x goes to
+// ssd_fwd_sm90.cu (TF32 wgmma), whose roundings would miss fp32's tolerance.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
-// (_ssd_kernel, launched by ssd_scan_fwd). For each chunk of Q steps, in
-// order, with the fp32 state h (N, P) carried from chunk to chunk:
+// (_ssd_kernel, launched by ssd_scan_fwd) for fp32 x. For each chunk of Q
+// steps, in order, with the fp32 state h (N, P) carried from chunk to chunk:
 //   lcum = cumsum(la)                              log-decay up to each step
 //   y    = ((C.B^T) o L).(x*dt)                    L[i,j] = exp(lcum_i - lcum_j), j <= i
 //        + (C.h) * exp(lcum)                       the state before this chunk
-//        + D * x                                   added in fp32, then one cast
+//        + D * x
 //   h    = h * exp(lcum_last) + B^T.(x*dt*exp(lcum_last - lcum))
-// and h_last is the state after the last chunk. As in the TPU kernel, D.x is
-// added in fp32 before the one cast to x's dtype (the plain version casts y
-// first: they differ by at most one rounding of the output type).
+// and h_last is the state after the last chunk.
 //
 // What bounds it on the H100: at the mamba2-2.7b serving shape (b=4, nc=4,
-// Q=256, H=80, P=64, N=128, x bf16) the function moves ~101 MB (x read and y
-// written dominate) and needs ~16.3 GFLOP, so its bound is set by bytes,
-// ~0.030 ms. This first version is simple and exact: every product runs as
-// fp32 FMAs on the CUDA cores (67 TFLOP/s peak), and each block recomputes
-// C.B^T for its own head (full 64 x 64 tiles on the diagonal), ~31 GFLOP in
-// all, so it stays far above its bound. Tensor cores (wgmma), TMA and a C.B^T
-// shared across heads are later work.
+// Q=256, H=80, P=64, N=128) in fp32 the function moves ~185 MB and needs
+// ~16.3 GFLOP, 0.24 ms at the CUDA cores' 67 TFLOP/s: operations. It is
+// simple and exact: every product runs as fp32 FMAs, and each block
+// recomputes C.B^T for its own head (full 64 x 64 tiles on the diagonal),
+// ~31 GFLOP in all.
 //
 // Design. The TPU grid's sequential chunk axis becomes a loop inside the
 // block: one block of 256 threads owns one (batch, head, P-tile of <= 64
@@ -38,7 +36,8 @@
 //
 // Entry point: ssd_fwd(...) with a plain C interface (loaded with ctypes),
 // launching on the given stream and returning cudaGetLastError().
-#include <cuda_bf16.h>
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,9 +49,7 @@ constexpr int NMAX = 128;     // largest state dimension taken
 constexpr int PTMAX = 64;     // widest P-tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -285,8 +282,17 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
   const int smem = (3 * QMAX + 2 * N * TILE + N * PT + TILE * PT + TILE * TILE) *
                    static_cast<int>(sizeof(float));
   auto kern = ssd_fwd_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // the shared-memory limit (the largest this kernel asks for) is set once
+  // per device, not on every launch
+  static std::atomic<int> smem_set_on{-1};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && smem_set_on.load() != dev) {
+    const int most = (3 * QMAX + 2 * NMAX * TILE + NMAX * PTMAX + TILE * PTMAX + TILE * TILE) *
+                     static_cast<int>(sizeof(float));
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err == cudaSuccess) smem_set_on.store(dev);
+  }
   if (err != cudaSuccess) return err;
   const dim3 grid(P / PT, H, b);
   kern<<<grid, NT, smem, stream>>>(
@@ -299,20 +305,17 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
 
 }  // namespace
 
-// x (b,nc,Q,H,P) and y (b,nc*Q,H,P) in fp32 (is_bf16 = 0) or bf16 (is_bf16 =
-// 1); dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32;
-// all contiguous, B and C 16-byte aligned. 1 <= Q <= 256; N a multiple of 4
-// up to 128; P a multiple of 4 up to 64, or a multiple of 64.
+// x (b,nc,Q,H,P) and y (b,nc*Q,H,P), dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D
+// (H,) and h_last (b,H,N,P), all fp32 and contiguous, B and C 16-byte
+// aligned. 1 <= Q <= 256; N a multiple of 4 up to 128; P a multiple of 4 up
+// to 64, or a multiple of 64.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* B, const void* C,
                        const void* la, const void* D, void* y, void* h_last, int b,
-                       int nc, int Q, int H, int P, int N, int is_bf16, void* stream) {
+                       int nc, int Q, int H, int P, int N, void* stream) {
   const bool ok = b > 0 && nc > 0 && Q >= 1 && Q <= QMAX && H > 0 && N >= 4 &&
                   N <= NMAX && N % 4 == 0 && P >= 4 && P % 4 == 0 &&
                   (P <= PTMAX || P % PTMAX == 0);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N, st)
-              : launch<float>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N, st);
-  return static_cast<int>(err);
+  return static_cast<int>(launch<float>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N,
+                                        static_cast<cudaStream_t>(stream)));
 }

@@ -1,0 +1,792 @@
+// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), x in bf16, every
+// product on the tensor cores in TF32.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
+// (_ssd_kernel, launched by ssd_scan_fwd) for bf16 x; fp32 x goes to the
+// exact ssd_fwd.cu. It computes what that kernel computes. For each chunk
+// of Q steps, in order, with the fp32 state h (N, P) carried from chunk to
+// chunk:
+//   lcum = cumsum(la)
+//   y    = (W).x + (C.h) * exp(lcum) + D * x,   W = (C.B^T) o L o dt_j,
+//          L[i,j] = exp(lcum_i - lcum_j) for j <= i, else 0
+//   h    = h * exp(lcum_last) + (B o dt * exp(lcum_last - lcum))^T.x
+// D.x is added in fp32 before the one cast to bf16; h_last is fp32.
+//
+// What bounds it on the H100: bytes. At the mamba2-2.7b serving shape (b=4,
+// nc=4, Q=256, H=80, P=64, N=128) it moves ~101 MB (x read and y written
+// dominate), 0.030 ms at 3.35 TB/s, against 16.3 GFLOP, 0.033 ms at TF32's
+// 495 TFLOP/s: the two are close, so the products must run on the tensor
+// cores and be fed without stalls.
+//
+// Why TF32 and not bf16. Rounding W to bf16 (x is exact in bf16) put 17
+// outputs over the bf16 tolerance (|err| <= 5e-2 + 5e-2 |ref|) at the
+// serving shape, at worst 1.55x of it; rounding B and C to bf16 for C.B^T
+// put 14-16 over at smaller shapes, at worst 1.8x. With every operand read
+// as TF32 (10 mantissa bits, truncated) the worst output stays at 0.58 of
+// the tolerance. fp32 operands are what wgmma's tf32 form reads: no
+// conversion pass. The sums stay fp32. ref.ssd_scan_tf32_ref models exactly
+// these roundings.
+//
+// What the design does about each limit of the CUDA-core version
+// (ssd_fwd.cu):
+//   - C.B^T once per (batch, chunk), not once per head: a first kernel,
+//     ssd_cb_kernel, computes the causal 64 x 64 tile pairs of CB = C.B^T
+//     (a TF32 wgmma over N) into an fp32 scratch buffer (b*nc, QT, QT) that
+//     stays in L2 (4.2 MB at the serving shape); the TPU kernel gets the
+//     same by broadcasting B and C over its head axis;
+//   - tensor cores: the scan kernel runs the inter term C_i.h, the intra
+//     term W_ij.x_j and the state update as m64nNk8 TF32 wgmmas. TF32 reads
+//     both operands K-major only, so h is kept transposed (h^T [p][n]) and
+//     x is widened to fp32 and transposed (x^T [p][j]) in shared memory,
+//     both in the 128-byte swizzle the descriptors name. W and the scaled
+//     B^T are built in registers straight into wgmma's A fragment (rs).
+//     Off the diagonal tile the decay 2^(lc_i - lc_j) factors through the
+//     column tile's last step, so W costs two multiplies an element and no
+//     exp. A fragment is built only after the last wgmma reading registers
+//     is done: registers defined while wgmmas are in flight make ptxas
+//     serialise every wgmma of the kernel (measured: 0.209 -> 0.185 ms);
+//   - more work in flight: two consumer warpgroups a block share x^T and
+//     h^T. Row tiles go to them in the order {0, 3} / {1, 2} (5 intra
+//     tiles each at 4 tiles a chunk), state rows n by halves;
+//   - loads: each warpgroup has its own 2-stage ring of 16 KB slots and a
+//     producer warp keeping TMA loads of its C row tiles, CB tiles and B
+//     tile halves in flight ("full" / "empty" mbarriers). A loader warp
+//     stages the next chunk's x, dt and la by cp.async (16 bytes a copy
+//     where rows allow, else 8) while the current chunk computes. B and C
+//     come once a (head, chunk) from L2, x once from memory;
+//   - y tiles are staged in shared memory and written by a TMA store
+//     (thread stores where P % 8 != 0); the state stays in registers (the
+//     state update's accumulator) across chunks, written once a chunk to
+//     h^T;
+//   - launch overhead: the shared-memory limits are set once per device.
+// One block per (P-tile of 32 or 64 columns, head, batch), ~220 KB of
+// shared memory at PT = 64, so one block an SM: 320 blocks at the serving
+// shape, 2.4 waves on 132 SMs. Two faster forms were dropped: the loader
+// warp computing the step vectors (lc, scl, vdt) for the next chunk, and
+// persistent blocks that walk several (P-tile, head, batch) units. Each
+// wrote wrong rows of y (and h) at random on shapes with 2-3 row tiles a
+// chunk and more blocks than SMs (e.g. Q = 128, H = 100), which this form
+// never did in the same stress runs; the cause was not found.
+//
+// Entry point: ssd_fwd_sm90(...) with a plain C interface (loaded with
+// ctypes); it launches ssd_cb_kernel then the scan kernel on the given
+// stream and returns cudaGetLastError().
+#include <atomic>
+
+#include "hopper.cuh"
+
+namespace {
+
+using namespace hopper;
+
+constexpr int TILE = 64;           // rows of a chunk tile
+constexpr int QMAX = 256;          // longest chunk taken
+constexpr int NMAX = 128;          // largest state dimension taken
+constexpr int ATOM_BYTES = TILE * 128;  // 64 rows of one 128-byte swizzle atom
+constexpr int SLOT = 2 * ATOM_BYTES;     // a ring slot: two atoms, 64 x 64 fp32
+constexpr int STAGES = 2;               // depth of each consumer warpgroup's TMA ring
+constexpr int WG = 128;                 // threads of a warpgroup
+constexpr int NCONS = 2 * WG;           // consumer threads: two warpgroups
+constexpr int NTHREADS = NCONS + 96;    // + a TMA producer warp per warpgroup, a loader warp
+
+// Byte offset of element (row, col) of an fp32 tile of `rows` rows stored
+// as 128-byte-swizzled atoms of 32 columns ([col / 32][rows][32], the 16-byte
+// chunks of each row permuted by row % 8), as TMA writes it and wgmma reads it.
+__device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
+  return (col >> 5) * rows * 128 + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) +
+         ((col & 3) << 2);
+}
+
+__device__ __forceinline__ float lds(const uint8_t* base, uint32_t off) {
+  return *reinterpret_cast<const float*>(base + off);
+}
+
+__device__ __forceinline__ void sts(uint8_t* base, uint32_t off, float v) {
+  *reinterpret_cast<float*>(base + off) = v;
+}
+
+// all consumer threads
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// the threads of consumer warpgroup w
+__device__ __forceinline__ void warpgroup_sync(int w) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + w) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// the barrier's phase completes (one arrival of this thread) once every
+// cp.async this thread has issued so far has landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// k8 step kk of a K-major swizzled operand whose atoms of `rows` rows lie
+// one after another from `desc`
+__device__ __forceinline__ uint64_t kstep(uint64_t desc, int kk, int rows) {
+  return desc_advance(desc, (kk >> 2) * rows * 128 + (kk & 3) * 32);
+}
+
+// K-major descriptor of a 64-row tile in the 128-byte swizzle
+__device__ __forceinline__ uint64_t tile_desc(const void* tile) {
+  return make_desc(tile, 16, 1024, Swizzle::B128);
+}
+
+
+// A B or C tile (64 rows x NA atoms of 32 columns) takes SLOTS<NA> ring
+// slots, two atoms a slot.
+template <int NA>
+inline constexpr int SLOTS = (NA + 1) / 2;
+
+// ---- CB = C.B^T, once per (batch, chunk) ------------------------------------
+// Block (tile pair, batch*chunk): rows it, columns jt <= it of CB, one TF32
+// wgmma chain over N (both operands K-major: n is contiguous in B and C).
+constexpr int CB_SMEM = 1024 + 2 * (NMAX / 32) * ATOM_BYTES + 8;
+
+template <int NA>
+__global__ void __launch_bounds__(WG)
+ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tb,
+              float* __restrict__ cb, int QT) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sc = align1024(smem_raw);
+  uint8_t* sb = sc + NA * ATOM_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sb + NA * ATOM_BYTES);
+  int it = 0, jt = blockIdx.x;
+  while (jt > it) jt -= ++it;      // the blockIdx.x-th causal pair (it, jt)
+  const int bc = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, 2 * NA * ATOM_BYTES);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      tma_load_3d(sc + a * ATOM_BYTES, &tc, bar, 32 * a, it * TILE, bc);
+      tma_load_3d(sb + a * ATOM_BYTES, &tb, bar, 32 * a, jt * TILE, bc);
+    }
+  }
+  mbar_wait(bar, 0);
+
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4 * NA; ++kk)
+    MmaTf32<64>::ss(d, kstep(tile_desc(sc), kk, TILE), kstep(tile_desc(sb), kk, TILE), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d);
+
+  const int row = it * TILE + 16 * warp + lane / 4;
+  float* out = cb + (static_cast<long long>(bc) * QT + row) * QT + jt * TILE + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      *reinterpret_cast<float2*>(out + 8 * q * QT + 8 * j) =
+          make_float2(d[4 * j + 2 * q], d[4 * j + 2 * q + 1]);
+}
+
+// ---- the scan ---------------------------------------------------------------
+
+template <int PT>
+struct ScanLayout {
+  static constexpr int XP = PT * 2 + 16;              // x staging pitch, bytes: rows
+                                                      // shift banks by 4 words
+  static constexpr int RING = 2 * STAGES * SLOT;      // one ring a warpgroup
+  static constexpr int HT = (NMAX / 32) * PT * 128;   // h^T [p][n], swizzled
+  static constexpr int XT = (QMAX / 32) * PT * 128;   // x^T [p][j] fp32, swizzled
+  static constexpr int XS = QMAX * XP;                // x [j][p] bf16, as loaded
+  static constexpr int YS = 2 * TILE * PT * 2;        // a y tile [i][p] bf16 a warpgroup,
+                                                      // swizzled as y's tensor map
+  // lc, scl, vdt; dt and la of two chunks (this one and the next, loading)
+  static constexpr int VEC = 7 * QMAX * 4;
+  static constexpr int SMEM = 1024 + RING + HT + XT + XS + YS + VEC + (4 * STAGES + 2) * 8;
+};
+
+// The producer's next ring slot: waits until it is free and announces
+// `bytes` on its full barrier.
+__device__ __forceinline__ uint8_t* produce(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                            int& n, uint32_t bytes, uint64_t*& bar) {
+  const int s = n % STAGES;
+  mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+  bar = &full[s];
+  mbar_arrive_expect_tx(bar, bytes);
+  ++n;
+  return ring + s * SLOT;
+}
+
+// `natoms` atoms of a 64-row tile, from atom `atom0` (32 columns each), rows
+// from `row`, into the producer's next ring slot
+__device__ __forceinline__ void produce_slot(uint8_t* ring, uint64_t* full, uint64_t* empty,
+                                             int& n, const CUtensorMap* map, int atom0,
+                                             int natoms, int row, int bc) {
+  uint64_t* bar;
+  uint8_t* dst = produce(ring, full, empty, n, natoms * ATOM_BYTES, bar);
+  for (int a = 0; a < natoms; ++a)
+    tma_load_3d(dst + a * ATOM_BYTES, map, bar, 32 * (atom0 + a), row, bc);
+}
+
+// The consumers' ring slot n, once its tile has landed.
+__device__ __forceinline__ const uint8_t* consume(uint8_t* ring, uint64_t* full, int n) {
+  const int s = n % STAGES;
+  mbar_wait(&full[s], (n / STAGES) & 1);
+  return ring + s * SLOT;
+}
+
+__device__ __forceinline__ void release(uint64_t* empty, int n) {
+  mbar_arrive(&empty[n % STAGES]);
+}
+
+// A chunk's inputs of this head and P-tile into shared memory by cp.async,
+// issued by the 32 lanes of the loader warp, each of which then arrives on
+// `bar` once its copies have landed: rows [0, Q) of x into the staging
+// buffer (16 bytes a copy where x's rows allow it, else 8), dt and la.
+template <int PT>
+__device__ __forceinline__ void load_chunk(uint8_t* xs, float* dtb, float* lab,
+                                           const __nv_bfloat16* x, const float* dt,
+                                           const float* la, long long row0, int Q, int H,
+                                           int h, int P, int p0, int pv, bool x16,
+                                           int lane, uint64_t* bar) {
+  constexpr int XP = ScanLayout<PT>::XP;
+  if (x16) {  // pv is a multiple of 8
+    for (int j = lane / (PT / 8); j < Q; j += 32 / (PT / 8)) {
+      const int q = lane % (PT / 8);
+      if (8 * q < pv) cp_async16(xs + j * XP + 16 * q, x + ((row0 + j) * H + h) * P + p0 + 8 * q);
+    }
+  } else {
+    for (int j = lane / (PT / 4); j < Q; j += 32 / (PT / 4)) {
+      const int q = lane % (PT / 4);
+      if (4 * q < pv) cp_async8(xs + j * XP + 8 * q, x + ((row0 + j) * H + h) * P + p0 + 4 * q);
+    }
+  }
+  for (int j = lane; j < Q; j += 32) {
+    cp_async4(dtb + j, dt + (row0 + j) * H + h);
+    cp_async4(lab + j, la + (row0 + j) * H + h);
+  }
+  cp_async_arrive(bar);
+}
+
+// byte offset `off` of a [64][PT] bf16 tile in the swizzle TMA gives rows of
+// PT * 2 bytes: 128-byte rows (PT = 64) XOR their 16-byte chunk index with
+// row % 8, 64-byte rows (PT = 32) theirs with (row / 2) % 4
+template <int PT>
+__device__ __forceinline__ uint32_t yswz(uint32_t off) {
+  return off ^ (((off >> 7) & (PT == 64 ? 7 : 3)) << 4);
+}
+
+// 2^x in one MUFU op; subnormal results flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// W_ij = CB_ij o 2^(lc_i - lc_j) o dt_j (lc in log2 units) in wgmma's tf32 A
+// layout: a[kk][r + 2hh] = W[row r0 + 8r][col 8kk + 4hh + c]. The CB tile is
+// [i][j] in two swizzled atoms; row r0 + 8r has r0's swizzle phase g. Rows
+// past Q hold C = 0 and are never stored.
+//   Off the diagonal (every j < i) the decay factors through the last step
+//   R of the column tile, j <= R < i: 2^(lc_i - lc_j) = u_i * 2^(lc_R - lc_j),
+//   both factors <= 1, so no exp per element: u holds 2^(lc_i - lc_R) of
+//   rows r0 and r0 + 8, vdt[j] = dt_j * 2^(lc_R - lc_j).
+//   On the diagonal, one exp per element, and j > i masked (its exp may
+//   overflow: the select, not a product, makes it 0).
+template <bool DIAG>
+__device__ __forceinline__ void build_w(uint32_t (&a)[8][4], const uint8_t* cbt,
+                                        const float* lc, const float* dts, const float* vdt,
+                                        int j0, int I0, float l0, float l1, float u0, float u1,
+                                        int r0, int c) {
+  const uint8_t* row = cbt + r0 * 128 + c * 4;
+  const int g = r0 & 7;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int col = 8 * kk + 4 * hh, J = j0 + col + c;
+      const uint32_t off = (col >> 5) * ATOM_BYTES + ((((col & 31) >> 2) ^ g) << 4);
+      if (DIAG) {
+        const float lj = lc[J], dj = dts[J];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float w = lds(row + r * 1024, off) * ex2((r ? l1 : l0) - lj) * dj;
+          a[kk][r + 2 * hh] = __float_as_uint(J <= I0 + 8 * r ? w : 0.f);
+        }
+      } else {
+        const float vj = vdt[J];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          a[kk][r + 2 * hh] = __float_as_uint(lds(row + r * 1024, off) * (r ? u1 : u0) * vj);
+      }
+    }
+}
+
+// (B o scl)^T for the state rows n = nb + r0 + 8r in the tf32 A layout:
+// a[kk][r + 2hh] = B[j = 8kk + 4hh + c][n] * scl[j0 + j]; columns n of the
+// B tile slot `bt` are nb .. nb + 63 (two swizzled atoms); rows n >= N are 0.
+__device__ __forceinline__ void build_bd(uint32_t (&a)[8][4], const uint8_t* bt,
+                                         const float* scl, int j0, int nb, int N, int r0,
+                                         int c) {
+  uint32_t off[2][2];
+  bool ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int nr = r0 + 8 * r;
+    ok[r] = nb + nr < N;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) off[r][hh] = swz(4 * hh + c, nr, TILE);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float sj = scl[j0 + 8 * kk + 4 * hh + c];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // row 8kk + 4hh + c has the swizzle phase of row 4hh + c
+        const float v = lds(bt + 8 * kk * 128, off[r][hh]) * sj;
+        a[kk][r + 2 * hh] = __float_as_uint(ok[r] ? v : 0.f);
+      }
+    }
+}
+
+// one wgmma group: acc += A (registers, 64 x 64 over j) . x^T [p][j] for the
+// j-tile jt
+template <int PT>
+__device__ __forceinline__ void mma_xt(float (&acc)[PT / 2], uint32_t (&a)[8][4],
+                                       uint64_t xt_desc, int jt) {
+  // every A register is final before the first wgmma: otherwise the compiler
+  // sinks the build into the chain and fences (serialises) each wgmma
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(a[kk][q]) :: "memory");
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) MmaTf32<PT>::rs(acc, a[kk], kstep(xt_desc, 8 * jt + kk, PT), 1);
+  wgmma_commit();
+}
+
+template <int PT, int NA>
+__global__ void __launch_bounds__(NTHREADS, 1)
+ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
+                     const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap tcb,
+                     const __grid_constant__ CUtensorMap ty, int y_tma,
+                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ la, const float* __restrict__ Dv,
+                     __nv_bfloat16* __restrict__ y, float* __restrict__ h_last, int nc,
+                     int Q, int H, int P, int N) {
+  using L = ScanLayout<PT>;
+  constexpr int ND = PT / 2;         // accumulator registers of a 64 x PT tile
+  constexpr int SPT = SLOTS<NA>;     // ring slots of a B or C tile
+  constexpr int MT = NA > 2 ? 2 : 1; // 64-row tiles of the state (n)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* rings = align1024(smem_raw);
+  uint8_t* ht = rings + L::RING;
+  uint8_t* xt = ht + L::HT;
+  uint8_t* yss = xt + L::XT;
+  uint8_t* xs = yss + L::YS;
+  float* lc = reinterpret_cast<float*>(xs + L::XS);  // cumulative log-decay, log2 units
+  float* scl = lc + QMAX;                              // dt * 2^(lc_last - lc)
+  float* vdt = scl + QMAX;                             // dt * 2^(lc_R - lc), R: the
+                                                       // last step of its 64-row tile
+  float* dtb = vdt + QMAX;                             // dt, two chunks
+  float* lab = dtb + 2 * QMAX;                         // la, two chunks
+  uint64_t* fulls = reinterpret_cast<uint64_t*>(lab + 2 * QMAX);
+  uint64_t* emptys = fulls + 2 * STAGES;
+  uint64_t* in_full = emptys + 2 * STAGES;  // a chunk's x, dt, la have landed
+  uint64_t* in_empty = in_full + 1;         // the consumers are done with the staged x
+
+  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (Q + TILE - 1) / TILE, QT = nt * TILE;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // Work of the two consumer warpgroups: row tiles it with (it ^ it / 2) % 2
+  // == wg ({0, 3} and {1, 2} at 4 tiles: 5 intra tiles each), and state rows
+  // n in [64 wg, 64 wg + 64) (all of them in warpgroup 0 when N <= 64). Each
+  // warpgroup has its own ring and producer warp, loading its tiles in the
+  // order it takes them.
+  const int wg = min(warp / 4, 1);
+  uint8_t* ring = rings + wg * STAGES * SLOT;
+  uint64_t* full = fulls + wg * STAGES;
+  uint64_t* empty = emptys + wg * STAGES;
+  const bool has_state = MT == 2 || wg == 0;
+  const int nb = MT == 2 ? TILE * wg : 0;  // first state row n of this warpgroup
+  auto owns = [wg](int it) { return ((it ^ (it >> 1)) & 1) == wg; };
+
+  if (tid == 0) {
+    for (int s = 0; s < 2 * STAGES; ++s) {
+      mbar_init(&fulls[s], 1);
+      mbar_init(&emptys[s], WG);
+    }
+    mbar_init(in_full, 32);
+    mbar_init(in_empty, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int pv = min(PT, P - p0);    // valid columns of this P-tile
+  if (warp == NCONS / 32 + 2) {
+    // loader: chunk ci's x, dt and la, once the consumers are done with
+    // chunk ci - 1's staged x (dt and la alternate between two buffers)
+    const bool x16 = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    for (int ci = 0; ci < nc; ++ci) {
+      if (ci > 0) mbar_wait(in_empty, (ci - 1) & 1);
+      load_chunk<PT>(xs, dtb + (ci & 1) * QMAX, lab + (ci & 1) * QMAX, x, dt, la,
+                     (static_cast<long long>(b) * nc + ci) * Q, Q, H, h, P, p0, pv, x16,
+                     lane, in_full);
+    }
+    return;
+  }
+  if (warp >= NCONS / 32) {
+    // producer of ring warp - 8: the C tile and CB tiles j <= i of each row
+    // tile its warpgroup owns, then its B tile slots, chunk after chunk
+    const int w = warp - NCONS / 32;
+    if (lane == 0) {
+      ring = rings + w * STAGES * SLOT;
+      full = fulls + w * STAGES;
+      empty = emptys + w * STAGES;
+      int n = 0;
+      for (int ci = 0; ci < nc; ++ci) {
+        const int bc = b * nc + ci;
+        for (int it = 0; it < nt; ++it) {
+          if (((it ^ (it >> 1)) & 1) != w) continue;
+          for (int sp = 0; sp < SPT; ++sp)
+            produce_slot(ring, full, empty, n, &tc, 2 * sp, NA < 2 ? NA : 2, it * TILE, bc);
+          for (int jt = 0; jt <= it; ++jt)
+            produce_slot(ring, full, empty, n, &tcb, 2 * jt, 2, it * TILE, bc);
+        }
+        if (MT == 2 || w == 0)
+          for (int jt = 0; jt < nt; ++jt)
+            produce_slot(ring, full, empty, n, &tb, MT == 2 ? 2 * w : 0, NA < 2 ? NA : 2,
+                         jt * TILE, bc);
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread holds rows r0 and r0 + 8 of each 64-row tile
+  // (of the chunk for y, of n for the state), columns 8j + 2c + {0, 1}
+  const int wtid = tid % WG;
+  const int g = lane / 4, c = lane % 4, r0 = 16 * (warp % 4) + g;
+  const float d_h = Dv[h];
+  const uint64_t ht_desc = tile_desc(ht);
+  const uint64_t xt_desc = tile_desc(xt);
+  uint8_t* ys = yss + wg * TILE * PT * 2;
+  float hacc[ND];                    // this warpgroup's state rows, columns p
+#pragma unroll
+  for (int i = 0; i < ND; ++i) hacc[i] = 0.f;
+  int n = 0;                         // position in this warpgroup's ring
+
+  for (int s = Q + tid; s < QMAX; s += NCONS)  // steps past Q stay 0
+    dtb[s] = dtb[QMAX + s] = lab[s] = lab[QMAX + s] = 0.f;
+  for (int ci = 0; ci < nc; ++ci) {
+    const long long row0 = (static_cast<long long>(b) * nc + ci) * Q;
+    const float* dts = dtb + (ci & 1) * QMAX;
+    const float* las = lab + (ci & 1) * QMAX;
+    mbar_wait(in_full, ci & 1);
+    consumer_sync();  // the last chunk is done with every buffer
+    if (warp == 0) {  // inclusive prefix sum of la over the chunk
+      const int per = (Q + 31) / 32;
+      const int s0 = lane * per, s1 = min(s0 + per, Q);
+      float run = 0.f;
+      for (int s = s0; s < s1; ++s) {
+        run += las[s];
+        lc[s] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const float before = incl - run;
+      for (int s = s0; s < s1; ++s) lc[s] = (lc[s] + before) * 1.4426950408889634f;
+      for (int s = Q + lane; s < QT; s += 32) lc[s] = 0.f;
+    }
+    // x^T [p][j] in fp32: a warp takes 32 rows j and 8 columns p, reading
+    // 16 bytes a row (the staging pitch spreads them over the banks) and
+    // writing 32 consecutive j of one row p of an atom
+    {
+      constexpr int PB = PT / 8, NW = NCONS / 32, U = 4;  // U items in flight a warp
+      const int items = (QT / 32) * PB;
+      for (int e0 = warp; e0 < items; e0 += U * NW) {
+        uint4 raw[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * NW, j = (e / PB) * 32 + lane;
+          raw[u] = e < items && j < Q
+                       ? *reinterpret_cast<const uint4*>(xs + j * L::XP + 16 * (e % PB))
+                       : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * NW, j = (e / PB) * 32 + lane, pc = (e % PB) * 8;
+          if (e >= items) break;
+          const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(&raw[u]);
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            sts(xt, swz(pc + r, j, PT), pc + r < pv ? __bfloat162float(xb[r]) : 0.f);
+        }
+      }
+    }
+    // h^T [p][n] from this warpgroup's state rows
+    if (has_state)
+#pragma unroll
+      for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          sts(ht, swz(8 * j + 2 * c + (q & 1), nb + r0 + 8 * (q >> 1), PT), hacc[4 * j + q]);
+    fence_async_smem();
+    consumer_sync();
+    if (tid == 0) mbar_arrive(in_empty);  // the loader may stage the next chunk
+    const float lc_last = lc[Q - 1];
+    for (int s = tid; s < QT; s += NCONS)
+      scl[s] = s < Q ? dts[s] * ex2(lc_last - lc[s]) : 0.f;
+    for (int s = tid; s < QT; s += NCONS)
+      vdt[s] = s < Q ? dts[s] * ex2(lc[min(s | (TILE - 1), Q - 1)] - lc[s]) : 0.f;
+    consumer_sync();
+
+    // ---- y, this warpgroup's 64-row tiles -------------------------------
+    for (int it = 0; it < nt; ++it) {
+      if (!owns(it)) continue;
+      const int i0 = it * TILE;
+      float acc[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) acc[i] = 0.f;
+      {  // inter-chunk term: C_i [i][n] . h^T [p][n], one group a slot
+#pragma unroll
+        for (int sp = 0; sp < SPT; ++sp) {
+          const uint8_t* ct = consume(ring, full, n + sp);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < (NA < 2 ? 4 : 8); ++kk)
+            MmaTf32<PT>::ss(acc, kstep(tile_desc(ct), kk, TILE),
+                            kstep(ht_desc, 8 * sp + kk, PT), sp + kk > 0);
+          wgmma_commit();
+        }
+        if (SPT == 2) {
+          wgmma_wait<1>();
+          release(empty, n);
+        }
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(empty, n + SPT - 1);
+        n += SPT;
+      }
+      const int I0 = i0 + r0, I1 = I0 + 8;
+      const float lc0 = lc[I0], lc1 = lc[I1];
+      {
+        const float e0 = ex2(lc0), e1 = ex2(lc1);
+#pragma unroll
+        for (int i = 0; i < ND; ++i) acc[i] *= (i / 2) % 2 ? e1 : e0;
+      }
+      // intra-chunk term: W_ij [i][j] from registers . x^T [p][j], j <= i.
+      // A tile is built only once the last one's wgmmas are done: building
+      // registers that a wgmma reads while wgmmas are in flight makes ptxas
+      // serialise every wgmma of the kernel (the other warpgroup fills the gap)
+      uint32_t wa[8][4];
+      auto intra = [&](uint32_t (&w)[8][4], int jt) {
+        const uint8_t* cbt = consume(ring, full, n);
+        if (jt == it) {
+          build_w<true>(w, cbt, lc, dts, vdt, jt * TILE, I0, lc0, lc1, 0.f, 0.f, r0, c);
+        } else {
+          const float lr = lc[jt * TILE + TILE - 1];  // a full tile: R < Q
+          build_w<false>(w, cbt, lc, dts, vdt, jt * TILE, I0, lc0, lc1, ex2(lc0 - lr),
+                         ex2(lc1 - lr), r0, c);
+        }
+        release(empty, n);
+        ++n;
+        mma_xt<PT>(acc, w, xt_desc, jt);
+      };
+      for (int jt = 0; jt <= it; ++jt) {
+        intra(wa, jt);
+        wgmma_wait<0>();
+      }
+      fence_regs(acc);
+      // epilogue: + D.x in fp32, one cast, staged in shared memory in the
+      // swizzle of y's tensor map. One thread stores the tile by TMA (rows
+      // past Q and columns past P lie outside the map and are not written);
+      // where a row of y is not 16-byte aligned (P % 8 != 0) the warpgroup
+      // stores it instead, 8 bytes a thread
+      if (y_tma && wtid == 0) tma_store_wait_read<0>();  // the last tile is out
+      warpgroup_sync(wg);
+#pragma unroll
+      for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int I = q ? I1 : I0, p = 8 * j + 2 * c;
+          const float v0 = acc[4 * j + 2 * q] + d_h * lds(xt, swz(p, I, PT));
+          const float v1 = acc[4 * j + 2 * q + 1] + d_h * lds(xt, swz(p + 1, I, PT));
+          *reinterpret_cast<__nv_bfloat162*>(ys + yswz<PT>((r0 + 8 * q) * PT * 2 + 2 * p)) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      if (y_tma) {
+        fence_async_smem();
+        warpgroup_sync(wg);
+        if (wtid == 0) {
+          tma_store_4d(&ty, ys, p0, h, i0, b * nc + ci);
+          tma_store_commit();
+        }
+      } else {
+        warpgroup_sync(wg);
+        const int q4 = pv / 4, rows = min(TILE, Q - i0);
+        for (int e = wtid; e < rows * q4; e += WG) {
+          const int r = e / q4, q = e % q4;
+          *reinterpret_cast<uint2*>(y + ((row0 + i0 + r) * H + h) * P + p0 + 4 * q) =
+              *reinterpret_cast<const uint2*>(ys + yswz<PT>(r * PT * 2 + 8 * q));
+        }
+      }
+    }
+
+    // ---- state: h * 2^lc_last + (B o scl)^T [n][j] . x^T [p][j] ---------
+    if (has_state) {
+      const float decay = ex2(lc_last);
+#pragma unroll
+      for (int i = 0; i < ND; ++i) hacc[i] *= decay;
+      uint32_t wa[8][4];
+      auto state = [&](uint32_t (&w)[8][4], int jt) {
+        build_bd(w, consume(ring, full, n), scl, jt * TILE, nb, N, r0, c);
+        release(empty, n);
+        ++n;
+        mma_xt<PT>(hacc, w, xt_desc, jt);
+      };
+      for (int jt = 0; jt < nt; ++jt) {
+        state(wa, jt);
+        wgmma_wait<0>();
+      }
+      fence_regs(hacc);
+    }
+  }
+
+  if (y_tma && wtid == 0) tma_store_wait<0>();
+  // h_last (b, H, N, P) from this warpgroup's state rows
+  if (has_state)
+#pragma unroll
+    for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int nr = nb + r0 + 8 * q, p = 8 * j + 2 * c;
+        if (nr < N && p < pv)
+          *reinterpret_cast<float2*>(
+              h_last + ((static_cast<long long>(b) * H + h) * N + nr) * P + p0 + p) =
+              make_float2(hacc[4 * j + 2 * q], hacc[4 * j + 2 * q + 1]);
+      }
+}
+
+// sets a kernel's dynamic shared-memory limit once per device, not on every
+// launch (one flag per kernel)
+template <typename Kernel>
+cudaError_t smem_limit_once(Kernel kern, int bytes, std::atomic<int>& set_on) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && set_on.load() != dev) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) set_on.store(dev);
+  }
+  return err;
+}
+
+template <int PT, int NA>
+int launch(const void* x, const void* dt, const void* B, const void* C, const void* la,
+           const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
+           int P, int N, cudaStream_t stream) {
+  const int nt = (Q + TILE - 1) / TILE, QT = nt * TILE;
+  const uint64_t bnc = static_cast<uint64_t>(b) * nc, q = Q, n = N, qt = QT;
+  CUtensorMap tc, tb, tcb;
+  // B, C (b*nc, Q, N) and CB (b*nc, QT, QT), fp32: boxes of 64 rows x 32
+  // columns (128 bytes, 128-byte swizzle); rows past Q and columns past N
+  // arrive as zeros
+  int err = make_tensor_map<3>(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, C, {n, q, bnc},
+                               {n * 4, q * n * 4}, {32, TILE, 1});
+  if (!err)
+    err = make_tensor_map<3>(&tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, B, {n, q, bnc},
+                             {n * 4, q * n * 4}, {32, TILE, 1});
+  if (!err)
+    err = make_tensor_map<3>(&tcb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cb, {qt, qt, bnc},
+                             {qt * 4, qt * qt * 4}, {32, TILE, 1});
+  // y (b*nc, Q, H, P) bf16 for the TMA store of y tiles, where its rows are
+  // 16-byte aligned
+  CUtensorMap ty{};
+  const int y_tma = P % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const uint64_t h_ = H, p_ = P;
+  if (!err && y_tma)
+    err = make_tensor_map<4>(&ty, false, y, {p_, h_, q, bnc}, {p_ * 2, h_ * p_ * 2,
+                             q * h_ * p_ * 2}, {PT, 1, TILE, 1});
+  if (err) return err;
+  static std::atomic<int> cb_set_on{-1}, scan_set_on{-1};
+  auto cbk = ssd_cb_kernel<NA>;
+  auto scan = ssd_scan_sm90_kernel<PT, NA>;
+  cudaError_t ce = smem_limit_once(cbk, CB_SMEM, cb_set_on);
+  if (ce == cudaSuccess) ce = smem_limit_once(scan, ScanLayout<PT>::SMEM, scan_set_on);
+  if (ce != cudaSuccess) return ce;
+  cbk<<<dim3(nt * (nt + 1) / 2, b * nc), WG, CB_SMEM, stream>>>(
+      tc, tb, static_cast<float*>(cb), QT);
+  ce = cudaGetLastError();
+  if (ce != cudaSuccess) return ce;
+  scan<<<dim3((P + PT - 1) / PT, H, b), NTHREADS, ScanLayout<PT>::SMEM, stream>>>(
+      tc, tb, tcb, ty, y_tma, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const float*>(dt),
+      static_cast<const float*>(la), static_cast<const float*>(D),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(h_last), nc, Q, H, P, N);
+  return cudaGetLastError();
+}
+
+template <int PT>
+int dispatch(const void* x, const void* dt, const void* B, const void* C, const void* la,
+             const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
+             int P, int N, cudaStream_t st) {
+  // 32-column atoms of a B or C tile: 1, 2 or 4 (N in (64, 96] loads an
+  // atom of zeros)
+  return N <= 32   ? launch<PT, 1>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+         : N <= 64 ? launch<PT, 2>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+                   : launch<PT, 4>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+}
+
+}  // namespace
+
+// x (b,nc,Q,H,P) and y (b,nc*Q,H,P) bf16; dt, la (b,nc,Q,H), B, C
+// (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32; cb an fp32 scratch buffer of
+// b*nc*QT*QT elements, QT = Q rounded up to 64. All contiguous; B, C and cb
+// 16-byte aligned (TMA), x 8-byte aligned (cp.async). 1 <= Q <= 256; N a
+// multiple of 4 up to 128; P a multiple of 4 up to 64, or a multiple of 64.
+extern "C" int ssd_fwd_sm90(const void* x, const void* dt, const void* B, const void* C,
+                            const void* la, const void* D, void* y, void* h_last, void* cb,
+                            int b, int nc, int Q, int H, int P, int N, void* stream) {
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && Q <= QMAX && H > 0 && N >= 4 &&
+                  N <= NMAX && N % 4 == 0 && P >= 4 && P % 4 == 0 &&
+                  (P <= 64 || P % 64 == 0);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return P <= 32 ? dispatch<32>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+                 : dispatch<64>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+}

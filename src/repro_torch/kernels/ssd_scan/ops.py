@@ -1,16 +1,20 @@
 """Public wrapper for the Mamba2 SSD chunked-scan kernel (forward only).
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan/kernel.py``
-(``_ssd_kernel``, wrapped by ``ops.ssd_scan``) with the CUDA C++ kernel in
-``csrc/ssd_fwd.cu``. At the mamba2-2.7b serving shape (b=4, nc=4, Q=256,
-H=80, P=64, N=128, x bf16) the scan is bound by bytes (~101 MB against
-~16.3 GFLOP); this first version runs every product as fp32 FMAs on the
-CUDA cores, one block per (batch, head, P-tile) walking the chunks in
-order, and leaves the tensor cores to later work. See the note at the head
-of the source.
+(``_ssd_kernel``, wrapped by ``ops.ssd_scan``) with two CUDA C++ kernels,
+chosen by x's dtype and by nothing else:
+  - bf16: ``csrc/ssd_fwd_sm90.cu``, every product a TF32 ``wgmma`` on the
+    tensor cores, B/C/CB tiles loaded by TMA through an mbarrier ring, and
+    ``C.B^T`` computed once per (batch, chunk) by a first kernel into a
+    scratch buffer the wrapper allocates;
+  - fp32: ``csrc/ssd_fwd.cu``, exact fp32 FMAs on the CUDA cores (TF32
+    would miss the fp32 tolerance).
+At the mamba2-2.7b serving shape (b=4, nc=4, Q=256, H=80, P=64, N=128, x
+bf16) the scan is bound by bytes (~101 MB against ~16.3 GFLOP). See the
+notes at the heads of the sources.
 
 A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
-tensor launches the kernel or raises. There is no fallback.
+tensor launches its dtype's kernel or raises. There is no fallback.
 """
 from __future__ import annotations
 
@@ -22,36 +26,58 @@ import torch
 from ..build import load
 from .ref import ssd_scan_ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_fwd.cu"
-X_DTYPES = (torch.float32, torch.bfloat16)
-MAX_CHUNK, MAX_STATE, P_TILE = 256, 128, 64
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: x's dtype -> (source, C entry point, whether it takes a CB scratch buffer)
+ROUTES = {
+    torch.bfloat16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", True),
+    torch.float32: (_CSRC / "ssd_fwd.cu", "ssd_fwd", False),
+}
+#: every source the wrapper may launch, each built once
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
+X_DTYPES = tuple(ROUTES)
+MAX_CHUNK, MAX_STATE, P_TILE, TILE = 256, 128, 64, 64
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load(SOURCE)
-    fn = lib.ssd_fwd
+def route(dtype):
+    """(source, entry point, takes a CB scratch buffer) of the kernel for x
+    of ``dtype``; ValueError for a dtype that neither kernel takes."""
+    if dtype not in ROUTES:
+        raise ValueError(f"ssd_scan: x dtype {dtype} not in {X_DTYPES}")
+    return ROUTES[dtype]
+
+
+def _entry(source, name, scratch):
+    fn = getattr(load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * (9 if scratch else 8) + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(x, dt, B, C, la, D):
     if x.dim() != 5:
         raise ValueError("ssd_scan: x must be 5-D (b, nc, Q, H, P)")
-    b, nc, Q, H, P = x.shape
-    N = B.shape[-1] if B.dim() == 4 else -1
-    want = {"dt": (dt, (b, nc, Q, H)), "la": (la, (b, nc, Q, H)),
-            "B": (B, (b, nc, Q, N)), "C": (C, (b, nc, Q, N)), "D": (D, (H,))}
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ssd_scan: {name} has shape {tuple(t.shape)}, "
-                             f"expected {shape} for x {tuple(x.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"ssd_scan: {name} must be float32, not {t.dtype}")
-    if x.dtype not in X_DTYPES:
-        raise ValueError(f"ssd_scan: x dtype {x.dtype} not in {X_DTYPES}")
-    if any(t.device != x.device for t in (dt, B, C, la, D)):
+    lead = x.shape[:4]
+    # one pass on the fast path (the wrapper's host time is part of every
+    # prefill layer); the loop below only names what is wrong
+    if not (dt.shape == lead and la.shape == lead and B.dim() == 4 and B.shape == C.shape
+            and B.shape[:3] == lead[:3] and D.shape == lead[3:]
+            and dt.dtype == la.dtype == B.dtype == C.dtype == D.dtype == torch.float32):
+        b, nc, Q, H, P = x.shape
+        N = B.shape[-1] if B.dim() == 4 else -1
+        want = {"dt": (dt, (b, nc, Q, H)), "la": (la, (b, nc, Q, H)),
+                "B": (B, (b, nc, Q, N)), "C": (C, (b, nc, Q, N)), "D": (D, (H,))}
+        for name, (t, shape) in want.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f"ssd_scan: {name} has shape {tuple(t.shape)}, "
+                                 f"expected {shape} for x {tuple(x.shape)}")
+            if t.dtype != torch.float32:
+                raise ValueError(f"ssd_scan: {name} must be float32, not {t.dtype}")
+    route(x.dtype)
+    dev = x.device
+    if not (dt.device == dev and B.device == dev and C.device == dev and la.device == dev
+            and D.device == dev):
         raise ValueError("ssd_scan: all inputs must be on one device")
 
 
@@ -77,21 +103,30 @@ def ssd_scan(x, dt, B, C, la, D):
     if P % 4 or (P > P_TILE and P % P_TILE):
         raise ValueError(f"ssd_scan: head dim {P} not a multiple of 4 up to "
                          f"{P_TILE}, or of {P_TILE}")
+    source, name, scratch = route(x.dtype)
     if B.data_ptr() % 16 or C.data_ptr() % 16:
         raise ValueError("ssd_scan: B and C must be 16-byte aligned")
-    lib = _lib()
+    if scratch and x.data_ptr() % 8:
+        raise ValueError("ssd_scan: x must be 8-byte aligned")
+    fn = _entry(source, name, scratch)
     y = torch.empty((b, nc * Q, H, P), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
+    # C.B^T of every (batch, chunk), 64 x 64 tiles (the bf16 route only)
+    qt = -(-Q // TILE) * TILE
+    cb = ([torch.empty((b * nc, qt, qt), dtype=torch.float32, device=x.device)]
+          if scratch else [])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_fwd(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
-                          la.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                          b, nc, Q, H, P, N, int(x.dtype == torch.bfloat16), stream)
+        err = fn(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), la.data_ptr(),
+                 D.data_ptr(), y.data_ptr(), h_last.data_ptr(), *(t.data_ptr() for t in cb),
+                 b, nc, Q, H, P, N, stream)
     if err:
-        raise RuntimeError(f"ssd_fwd: CUDA error {err}")
+        raise RuntimeError(f"{name}: CUDA error {err}")
     ssd_scan.launches += 1
     return y, h_last
 
 
-#: kernel launches since the count was last set to 0 (CPU calls not counted)
+#: calls that reached a kernel since the count was last set to 0: one a call,
+#: though the bf16 route launches two kernels (the CB pass, then the scan);
+#: CPU calls are not counted
 ssd_scan.launches = 0

@@ -35,3 +35,41 @@ def ssd_scan_ref(x, dt, B, C, la, D):
     y = torch.stack(ys, dim=1).to(x.dtype).reshape(b, nc * Q, H, P)
     y = y + (D[:, None] * x.float().reshape(b, nc * Q, H, P)).to(x.dtype)
     return y, h
+
+
+def tf32(t):
+    """``t`` in fp32 with the 13 low mantissa bits cleared: the value the
+    tensor cores read when a wgmma takes raw fp32 as tf32 (truncation)."""
+    return (t.float().contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def ssd_scan_tf32_ref(x, dt, B, C, la, D):
+    """The same function as ``ssd_scan_ref``, rounded where the bf16 CUDA
+    route (``csrc/ssd_fwd_sm90.cu``) rounds: each product's operands are
+    read as tf32 (``tf32``), every sum and every other step is fp32, and
+    ``D.x`` is added in fp32 before the one cast to x's dtype. The four
+    products: ``CB = C.B^T``; ``W.x`` with ``W = CB o L o dt_j``; ``C.h``;
+    and the state update ``(B o dt o decay_to_end)^T.x``. The main path never
+    calls it: the tests hold the kernel against it, and it against the
+    reference."""
+    b, nc, Q, H, P = x.shape
+    N = B.shape[-1]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    h = torch.zeros((b, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        la_c, dt_c = la[:, c].float(), dt[:, c].float()
+        b_c, c_c, x_c = tf32(B[:, c]), tf32(C[:, c]), x[:, c].float()
+        lcum = torch.cumsum(la_c, dim=1)                             # (b,Q,H)
+        seg = lcum[:, :, None, :] - lcum[:, None, :, :]              # (b,Q,Q,H)
+        L = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)
+        w = tf32(cb[..., None] * L * dt_c[:, None, :, :])
+        y = torch.einsum("bijh,bjhp->bihp", w, x_c)
+        y = y + torch.einsum("bin,bhnp->bihp", c_c, tf32(h)) * torch.exp(lcum)[..., None]
+        scl = dt_c * torch.exp(lcum[:, -1:, :] - lcum)               # (b,Q,H)
+        bd = tf32(B[:, c].float()[:, :, None, :] * scl[..., None])  # (b,Q,H,N)
+        s_c = torch.einsum("bjhn,bjhp->bhnp", bd, x_c)
+        h = h * torch.exp(lcum[:, -1, :])[..., None, None] + s_c
+        ys.append(y + D[:, None] * x_c)
+    return torch.stack(ys, dim=1).to(x.dtype).reshape(b, nc * Q, H, P), h

@@ -1,6 +1,6 @@
-"""The port's kernel build cache and the flash wrapper's routes, on the CPU
-(no nvcc needed): a library is named by its source and every header the
-source can include, and each dtype the wrapper takes names a source whose
+"""The port's kernel build cache and the flash and SSD wrappers' routes, on
+the CPU (no nvcc needed): a library is named by its source and every header
+the source can include, and each dtype a wrapper takes names a source whose
 C entry point has the arguments the wrapper passes."""
 import re
 import shutil
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
 KERNELS = Path(build.__file__).resolve().parent
 
@@ -79,3 +80,51 @@ def test_other_dtypes_raise(dtype):
 
 def test_sources_are_built_once_each():
     assert len(ops.SOURCES) == len(set(ops.SOURCES)) == 2
+
+
+@pytest.mark.parametrize("dtype,source,n_ptr", [(torch.bfloat16, "ssd_fwd_sm90.cu", 9),
+                                                (torch.float32, "ssd_fwd.cu", 8)])
+def test_each_ssd_dtype_names_a_source_and_its_entry_point(dtype, source, n_ptr):
+    src, name, scratch = ssd_ops.route(dtype)
+    assert src.name == source and src.exists() and src in ssd_ops.SOURCES
+    assert scratch == (n_ptr == 9)
+    sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
+    assert sig, f"{src.name} has no C entry point {name}"
+    args = [a.strip() for a in sig.group(1).split(",")]
+    # x, dt, B, C, la, D, y, h_last (+ the CB scratch); b, nc, Q, H, P, N; stream
+    assert len(args) == n_ptr + 6 + 1
+    assert all("void*" in a for a in args[:n_ptr] + args[-1:])
+    assert all(a.startswith("int ") for a in args[n_ptr:-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32,
+                                   torch.complex64])
+def test_other_ssd_dtypes_raise(dtype):
+    with pytest.raises(ValueError):
+        ssd_ops.route(dtype)
+
+
+def test_chip_smoke_builds_every_source():
+    """chip_smoke.py builds both flash routes and both SSD routes."""
+    text = (KERNELS.parents[2] / "chip_smoke.py").read_text()
+    assert "sources = [*ops.SOURCES, *ssd_ops.SOURCES]" in text
+    assert len(ssd_ops.SOURCES) == len(set(ssd_ops.SOURCES)) == 2
+    assert {s.name for s in ssd_ops.SOURCES} == {"ssd_fwd_sm90.cu", "ssd_fwd.cu"}
+
+
+def test_editing_the_shared_header_renames_both_hopper_libraries(tmp_path):
+    """ssd_fwd_sm90.cu includes hopper.cuh like K1's Hopper source, so an edit
+    of the header rebuilds both."""
+    shared = tmp_path / "csrc"
+    shutil.copytree(KERNELS / "csrc", shared)
+    srcs = []
+    for sub, src in (("flash_attention", ops.route(torch.bfloat16)[0]),
+                     ("ssd_scan", ssd_ops.route(torch.bfloat16)[0])):
+        assert '#include "hopper.cuh"' in src.read_text()
+        local = tmp_path / sub / "csrc"
+        shutil.copytree(src.parent, local)
+        srcs.append(local / src.name)
+    before = [build.library_path(s, shared) for s in srcs]
+    (shared / "hopper.cuh").write_text((shared / "hopper.cuh").read_text() + "// edit\n")
+    after = [build.library_path(s, shared) for s in srcs]
+    assert all(a != b for a, b in zip(after, before))

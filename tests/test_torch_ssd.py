@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.ssd_scan import ops, ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ops, ssd_scan, ssd_scan_ref, ssd_scan_tf32_ref
 
 # (b, nc, Q, H, P, N): copied from tests/test_kernels.py
 SSD_CASES = [
@@ -29,6 +29,13 @@ SLICE_CASE = (4, 4, 256, 80, 64, 128)
 # tolerance (tests/test_kernels.py), which also covers the one rounding by
 # which the kernel's fp32 D.x add differs from the plain cast-then-add
 DTYPES = [("float32", 1e-4), ("bfloat16", 5e-2)]
+# The bf16 CUDA route against its CPU model (ssd_scan_tf32_ref) on the same
+# inputs: |kernel - model| <= 1e-3 max|model| + 1e-2 |model|. They differ
+# where a tf32 truncation falls on the other side in one of them (2^-11 of a
+# term, the terms up to the size of the largest output) and by a bf16
+# rounding of y (2^-8); 5x tighter in relative terms than 5e-2, so a fragment
+# layout or mask slip that stays inside 5e-2 still shows
+MODEL_TOL = (1e-3, 1e-2)
 # At SLICE_CASE the sums run over 256 steps x 128 states with terms up to the
 # size of the largest output; two fp32 orders differ there by up to a few
 # 1e-6 of it, so in f32 that case's absolute tolerance is 1e-4 of the largest
@@ -85,6 +92,31 @@ def test_ssd_matches_jax(case, dtype, tol, jx):
         np.testing.assert_allclose(f32(h), f32(jh), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("case", SSD_CASES + [SMOKE_CASE])
+def test_tf32_model_matches_jax(case, jx):
+    """The CPU model of the bf16 CUDA route's roundings (every product's
+    operands read as tf32) stays within the bf16 tolerance of the JAX
+    kernel (interpret mode) and of both references."""
+    arrs = inputs(case)
+    y, h = ssd_scan_tf32_ref(*as_torch(arrs, "bfloat16"))
+    ry, rh = ssd_scan_ref(*as_torch(arrs, "bfloat16"))
+    jargs = jx.inputs(arrs, "bfloat16")
+    for want_y, want_h in (jx.kern(*jargs), jx.ref(*jargs), (ry, rh)):
+        np.testing.assert_allclose(f32(y), f32(want_y), atol=5e-2, rtol=5e-2)
+        np.testing.assert_allclose(f32(h), f32(want_h), atol=5e-2, rtol=5e-2)
+
+
+def test_tf32_model_matches_plain_version_at_the_slice():
+    """At the serving shape, where the sums are longest (256 steps x 128
+    states), the tf32 roundings still keep to the bf16 tolerance (the worst
+    output is at ~0.58 of it)."""
+    args = as_torch(inputs(SLICE_CASE), "bfloat16")
+    y, h = ssd_scan_tf32_ref(*args)
+    ry, rh = ssd_scan_ref(*args)
+    np.testing.assert_allclose(f32(y), f32(ry), atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(f32(h), f32(rh), atol=5e-2, rtol=5e-2)
+
+
 def test_ssd_state_continuity():
     """The chunked scan equals a plain step-by-step recurrence, in y and in
     the final state that seeds decode."""
@@ -137,10 +169,28 @@ def no_tf32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
+# shapes on which earlier forms of the bf16 route raced (2-3 row tiles a
+# chunk, more blocks than SMs): wrong rows at random, so a run here that
+# passes says little, one that fails says a lot
+RACE_CASES = [(2, 3, 128, 100, 64, 64), (3, 3, 192, 90, 64, 96)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SSD_CASES + [SMOKE_CASE, SLICE_CASE])
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype, tol, no_tf32):
+    check_cuda_kernel(case, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RACE_CASES)
+def test_cuda_bf16_route_on_race_prone_shapes(case, no_tf32):
+    check_cuda_kernel(case, "bfloat16", 5e-2)
+
+
+def check_cuda_kernel(case, dtype, tol):
+    """The CUDA kernel of ``dtype``'s route against the plain version and,
+    for bf16, against the CPU model of its roundings, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     args = as_torch(inputs(case), dtype, "cuda")
@@ -153,3 +203,8 @@ def test_cuda_kernel_matches_plain_version(case, dtype, tol, no_tf32):
     for out, ref in ((f32(y), f32(ry)), (f32(h), f32(rh))):
         scale = np.abs(ref).max() if (case, dtype) == (SLICE_CASE, "float32") else 1.0
         np.testing.assert_allclose(out, ref, atol=tol * scale, rtol=tol)
+    if dtype == "bfloat16":
+        my, mh = ssd_scan_tf32_ref(*args)
+        for out, ref in ((f32(y), f32(my)), (f32(h), f32(mh))):
+            np.testing.assert_allclose(out, ref, atol=MODEL_TOL[0] * np.abs(ref).max(),
+                                       rtol=MODEL_TOL[1])
