@@ -24,13 +24,27 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      before and read just after: ``serve`` in bf16, 8 requests of 1024
      prompt tokens + 64 new tokens, on full-width tinyllama-1.1b through the
      flash kernel and on full-width mamba2-2.7b through the SSD kernel;
-  6. one JSON line of kernel numbers, then the result line.
+  6. gradients through the kernels: fp32, full width, 2 layers, 1024
+     tokens; the loss and every parameter's gradient with the kernel flag on
+     (the kernel forward, its autograd backward) and off (the plain path);
+  7. the train path: ``train`` on full-width, full-depth tinyllama-1.1b in
+     bf16 through the flash kernel, batch 4 x 1024 tokens: 4 I/O-aware
+     steps with one asynchronous checkpoint under ``build/``, a bit-for-bit
+     restore of it, a 2-step resume from it, and the ``--no-io-aware``
+     baseline (4 steps, one synchronous checkpoint); fails if the disk
+     cannot hold a checkpoint;
+  8. ``train`` on full-width, full-depth mamba2-2.7b in bf16 through the SSD
+     kernel, batch 4 x 1024 tokens, 2 steps, no checkpoint;
+  9. one JSON line of train numbers, one of kernel numbers, then the result
+     line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 """
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -110,6 +124,13 @@ SSD_MODEL_TOL = (1e-3, 1e-2)
 PREFILL_RTOL = 1e-3
 
 SERVE = dict(n_requests=8, batch=4, prompt_len=1024, max_new=64)
+# the train phases: batch 4 x 1024 tokens, the serving prompt, so that each
+# kernel runs at the shape phase 3 times
+TRAIN = dict(batch=4, seq=1024)
+# fp32, kernel vs plain path: the forwards differ by summation order (~1e-7
+# relative), the backwards are the same recompute of the plain version, so
+# every gradient leaf agrees within 1e-3 of its largest |g|
+GRAD_RTOL = 1e-3
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -440,6 +461,243 @@ def serve_path(torch, serve_mod, Model, cfg, kernels):
     return launches
 
 
+def check_train_grads(torch, np, Model, cfg32, flag, counter):
+    """Phase 6: fp32, full width, 2 layers, B=1 x 1024 tokens. The loss and
+    every gradient leaf with ``flag`` on and off; no parameter without a
+    gradient through the kernel; the kernel launched twice a layer (the
+    forward, and its re-run under remat)."""
+    cfg = cfg32.replace(n_layers=2)
+    params = Model(cfg).init(0, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 1024))).cuda()
+             for k in ("tokens", "targets")}
+    losses, grads, launches = [], [], []
+    for on in (True, False):
+        n0 = counter.launches
+        loss = Model(cfg.replace(**{flag: on})).loss(params, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches.append(counter.launches - n0)
+        missing = [k for k, p in params.named_parameters() if p.grad is None]
+        if missing:
+            raise AssertionError(f"{cfg.name} {flag}={on}: no gradient for {missing}")
+        grads.append({k: p.grad for k, p in params.named_parameters()})
+        losses.append(loss.item())
+        params.zero_grad(set_to_none=True)
+    worst, worst_leaf = 0.0, None
+    for k, g in grads[0].items():
+        want = grads[1][k]
+        frac = ((g - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+        if not frac <= worst:
+            worst, worst_leaf = frac, k
+    print(f"[grads] {cfg.name} fp32 2 layers B=1 S=1024: loss {losses[0]:.6f} "
+          f"({flag} on) vs {losses[1]:.6f} (off); {len(grads[0])} gradient leaves, "
+          f"worst |diff| {worst:.3g} of its leaf's max |g| ({worst_leaf}; limit "
+          f"{GRAD_RTOL}); kernel launches {launches[0]} on, {launches[1]} off")
+    if launches != [2 * cfg.n_layers, 0]:
+        raise AssertionError(f"launches {launches}, expected [{2 * cfg.n_layers}, 0]")
+    if not (np.isfinite(losses).all() and abs(losses[0] - losses[1]) <= GRAD_RTOL * abs(losses[1])
+            and worst <= GRAD_RTOL):
+        raise AssertionError(f"{cfg.name}: kernel and plain gradients disagree: {worst:.3g} "
+                             f"of a leaf's max ({worst_leaf}), losses {losses}")
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def ckpt_bytes(cfg):
+    """Bytes of one checkpoint of (params, AdamW state): the params in their
+    dtypes and fp32 m and v, from a model on the meta device."""
+    from repro_torch.models.model import SSM
+    from repro_torch.models.transformer import Transformer
+    m = (SSM if cfg.family == "ssm" else Transformer)(cfg, device="meta")
+    return sum(p.numel() * (p.element_size() + 8) for p in m.parameters())
+
+
+def train_run(torch, train_mod, cfg, kernels, name, **kw):
+    """One run of ``train`` with every launch count set to 0 just before and
+    read just after; checks finite losses and gnorms. Returns the result,
+    the launches and its numbers: step time (median of the steps after the
+    first, from the log's clock, which each step's loss and gnorm sync),
+    tokens/s, peak memory, and per save the time ``save`` held the loop, the
+    part of it spent copying to the host, the seconds from its start to the
+    manifest's commit, the time ``wait`` held the loop at the end, and the
+    overlap: the share of save-to-commit the loop spent elsewhere."""
+    log = ROOT / "build" / "chip_smoke" / f"train_{name}.jsonl"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    log.unlink(missing_ok=True)
+    saves = []
+    manager_mod = sys.modules[train_mod.CheckpointManager.__module__]
+    to_host = manager_mod.to_host
+    host_s = [0.0]
+
+    def timed_to_host(leaf):
+        t0 = time.monotonic()
+        out = to_host(leaf)
+        host_s[0] += time.monotonic() - t0
+        return out
+
+    class Timed(train_mod.CheckpointManager):
+        def save(self, step, tree, sync=False):
+            host_s[0] = 0.0
+            t0 = time.monotonic()
+            ok = super().save(step, tree, sync=sync)
+            sv = {"step": step, "saved": ok, "save_call_s": time.monotonic() - t0,
+                  "host_copy_s": host_s[0], "wait_s": 0.0}
+            if ok and self._in_flight is not None:     # async: the commit's future
+                sv["manifest"] = self._in_flight[1]    # resolves to the manifest
+            elif ok:
+                sv["manifest"] = json.loads(
+                    (self.dir / f"step_{step:08d}" / "MANIFEST.json").read_text())
+            saves.append(sv)
+            return ok
+
+        def wait(self):
+            step = self._in_flight[0] if self._in_flight else None
+            t0 = time.monotonic()
+            super().wait()
+            for sv in saves:
+                if sv["step"] == step and sv["saved"]:
+                    sv["wait_s"] = time.monotonic() - t0
+
+    train_mod.CheckpointManager = Timed
+    manager_mod.to_host = timed_to_host
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for k in kernels:
+            k["counter"].launches = 0
+        out = train_mod.train(cfg, log_path=str(log), device="cuda", **TRAIN, **kw)
+        torch.cuda.synchronize()
+        launches = {k["name"]: k["counter"].launches for k in kernels}
+    finally:
+        train_mod.CheckpointManager = Timed.__mro__[1]
+        manager_mod.to_host = to_host
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    steps = [r["t"] - p["t"] for p, r in zip(rows, rows[1:])]
+    step_s = statistics.median(steps) if steps else rows[0]["t"]
+    for sv in saves:
+        if not sv["saved"]:       # skipped: the previous save was in flight
+            continue
+        manifest = sv.pop("manifest")
+        manifest = manifest if isinstance(manifest, dict) else manifest.value()
+        # save_seconds runs from after the host copy to the commit
+        # (async: the host copy in the call, then the writes in the
+        # background; sync: all of it in the call)
+        sv["save_to_commit_s"] = sv["save_call_s"] + manifest["save_seconds"] \
+            if kw["io_aware"] else sv["save_call_s"]
+        sv["manifest_save_seconds"] = manifest["save_seconds"]
+        # the share of save-to-commit the loop did not wait for, in save or
+        # in the final wait (a save committed before it has none): 0 for a
+        # synchronous save
+        sv["overlap"] = (1 - (sv["save_call_s"] + sv["wait_s"]) / sv["save_to_commit_s"]
+                         if kw["io_aware"] else 0.0)
+    num = {"steps_run": out["steps_run"], "losses": out["losses"],
+           "gnorms": [r["gnorm"] for r in rows], "step_s": step_s,
+           "first_step_s": rows[0]["t"], "steps_s": steps,
+           "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
+           "wall_s": out["wall_s"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "saves": saves, "launches": launches, "runtime_stats": out["runtime_stats"]}
+    print(f"[train] {cfg.name} {name}: {out['steps_run']} steps, losses "
+          f"{[round(x, 4) for x in out['losses']]}, gnorms "
+          f"{[round(g, 4) for g in num['gnorms']]}, step {step_s:.4f} s (median of "
+          f"{[round(x, 4) for x in steps]}; first {rows[0]['t']:.3f} s), "
+          f"{num['tokens_per_s']:.1f} tok/s, wall {out['wall_s']:.3f} s, peak "
+          f"{num['peak_gib']:.3f} GiB, launches {launches}, saves {saves}, "
+          f"runtime {out['runtime_stats']}")
+    if not all(map(math.isfinite, out["losses"] + num["gnorms"])):
+        raise AssertionError(f"{cfg.name} {name}: a loss or gnorm is not finite")
+    return out, launches, num
+
+
+def train_dense(torch, train_mod, CheckpointManager, cfg, kernels):
+    """Phase 7: I/O-aware run with one async checkpoint, restore check,
+    resume, baseline. Returns (launches of the I/O-aware run, numbers)."""
+    ck_root = ROOT / "build" / "chip_smoke" / "ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ck_root.mkdir(parents=True)
+    need = ckpt_bytes(cfg)
+    free = shutil.disk_usage(ck_root).free
+    print(f"[disk] {free / 1e9:.2f} GB free under {ck_root.relative_to(ROOT)}; one "
+          f"checkpoint of {cfg.name} (params + fp32 m, v) is {need / 1e9:.2f} GB")
+    if free < need:
+        raise AssertionError(f"{free / 1e9:.2f} GB free cannot hold a {need / 1e9:.2f} GB "
+                             "checkpoint")
+    per_step = cfg.n_layers * 2        # the forward, and its re-run under remat
+    nums = {"checkpoint_gb": need / 1e9, "disk_free_gb": free / 1e9}
+
+    def expect(launches, steps, what):
+        want = {k["name"]: steps * per_step if k["name"] == "flash_attention_fwd" else 0
+                for k in kernels}
+        if launches != want:
+            raise AssertionError(f"{cfg.name} {what} launched {launches}, expected {want}")
+
+    d = ck_root / "io_aware"
+    out, io_launches, nums["io_aware"] = train_run(
+        torch, train_mod, cfg, kernels, "io_aware", steps=4, ckpt_dir=str(d), ckpt_every=4,
+        io_aware=True, resume=False)
+    expect(io_launches, 4, "the I/O-aware run")
+    if CheckpointManager(d).steps() != [3]:
+        raise AssertionError(f"checkpoint steps {CheckpointManager(d).steps()}, expected [3]")
+    # the restore, bit for bit, against the state the run ended with (= saved)
+    like = (out["params"].state_dict(), out["opt_state"])
+    t0 = time.monotonic()
+    (sd, opt), step = CheckpointManager(d).restore(like)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    checked: dict = {}
+    for (key, want), (_, got) in zip(_leaves(like), _leaves((sd, opt))):
+        if got.dtype != want.dtype or got.device != want.device or not torch.equal(got, want):
+            raise AssertionError(f"restored {key} differs from the saved tensor")
+        checked[str(want.dtype)] = checked.get(str(want.dtype), 0) + 1
+    print(f"[restore] step {step} in {restore_s:.3f} s: every leaf equal bit for bit, "
+          f"by dtype {checked}")
+    nums["restore"] = {"step": step, "seconds": restore_s, "leaves_by_dtype": checked}
+    del out, like, sd, opt
+    torch.cuda.empty_cache()
+
+    out, launches, nums["resume"] = train_run(
+        torch, train_mod, cfg, kernels, "resume", steps=6, ckpt_dir=str(d), ckpt_every=4,
+        io_aware=True, resume=True)
+    if out["steps_run"] != 2:
+        raise AssertionError(f"the resume ran {out['steps_run']} steps, expected 2")
+    expect(launches, 2, "the resume")
+    del out
+    shutil.rmtree(d)
+
+    d = ck_root / "baseline"
+    out, launches, nums["baseline"] = train_run(
+        torch, train_mod, cfg, kernels, "baseline", steps=4, ckpt_dir=str(d), ckpt_every=4,
+        io_aware=False, resume=False)
+    expect(launches, 4, "the baseline")
+    if not (d / "step_00000003" / "MANIFEST.json").exists():
+        raise AssertionError("the baseline wrote no step_00000003")
+    del out
+    shutil.rmtree(ck_root)
+    torch.cuda.empty_cache()
+    return io_launches, nums
+
+
+def _leaves(tree):
+    from repro_torch.checkpoint.serializer import flatten_with_paths
+    for key, leaf in flatten_with_paths(tree):
+        for i, t in enumerate(leaf if isinstance(leaf, list) else [leaf]):
+            yield (f"{key}[{i}]" if isinstance(leaf, list) else key), t
+
+
+def train_ssm(torch, train_mod, cfg, kernels):
+    """Phase 8: 2 steps, no checkpoint; the SSD kernel twice a layer a step."""
+    out, launches, nums = train_run(torch, train_mod, cfg, kernels, "ssm", steps=2,
+                                    ckpt_dir=None, ckpt_every=0, io_aware=True)
+    want = {k["name"]: 2 * cfg.n_layers * 2 if k["name"] == "ssd_scan_fwd" else 0
+            for k in kernels}
+    if launches != want or out["steps_run"] != 2:
+        raise AssertionError(f"{cfg.name} train launched {launches} in {out['steps_run']} "
+                             f"steps, expected {want} in 2")
+    del out
+    torch.cuda.empty_cache()
+    return launches, nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -451,7 +709,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import attention_ref, ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
     from repro_torch.models import Model
 
     # the flash row's numbers are those of the bf16 route, the serving path's
@@ -516,11 +776,32 @@ def main() -> int:
             raise AssertionError(f"{arch} serve launched {got}, expected {expect}")
         launches[name] = got[name]
 
-    # 6. kernel numbers, then the result line
+    # 6. gradients through each kernel against the plain path
+    check_train_grads(torch, np, Model, get_config("tinyllama-1.1b").replace(
+        dtype=torch.float32), "use_flash", ops.flash_attention)
+    check_train_grads(torch, np, Model, get_config("mamba2-2.7b").replace(
+        dtype=torch.float32), "use_ssd_kernel", ssd_ops.ssd_scan)
+
+    # 7-8. the train paths: each kernel's launches on its own train path
+    train_nums = {"card": smi}
+    dense = get_config("tinyllama-1.1b").replace(use_flash=True)
+    flash_train, train_nums[dense.name] = train_dense(torch, train_mod, CheckpointManager,
+                                                      dense, kernels)
+    ssm = get_config("mamba2-2.7b").replace(use_ssd_kernel=True)
+    ssd_train, train_nums[ssm.name] = train_ssm(torch, train_mod, ssm, kernels)
+    train_paths = {
+        "flash_attention_fwd": (flash_train["flash_attention_fwd"],
+                                "tinyllama-1.1b train, I/O-aware, 4 steps of 4 x 1024 tokens"),
+        "ssd_scan_fwd": (ssd_train["ssd_scan_fwd"],
+                         "mamba2-2.7b train, 2 steps of 4 x 1024 tokens")}
+
+    # 9. train numbers, kernel numbers, then the result line
+    print(json.dumps({"train": train_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
-         "replaces": k["replaces"], "launches": launches[k["name"]], **rows[k["name"]]}
+         "replaces": k["replaces"], "launches": launches[k["name"]], **rows[k["name"]],
+         "train_launches": train_paths[k["name"]][0], "train_path": train_paths[k["name"]][1]}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ The JAX tree (``repro.models.Model(cfg).init(key)[0]``) is a nested dict
 whose ``layers`` leaves are stacked on a leading ``(n_layers,)`` axis. The
 port keeps every per-layer shape of the reference, so conversion is a
 rename (``layers/attn/q`` -> ``layers.{i}.attn.q``; for the SSM family
-``layers/in_x`` -> ``layers.{i}.in_x``) plus a split of that axis. Both
-directions go through numpy; bf16 travels as ``ml_dtypes``' ``bfloat16``,
-the dtype JAX hands to numpy.
+``layers/in_x`` -> ``layers.{i}.in_x``) plus a split of that axis
+(``jax_path``, ``stack_layers``). Both directions go through numpy; bf16
+travels as ``ml_dtypes``' ``bfloat16``, the dtype JAX hands to numpy.
+The AdamW state converts the same way: ``m`` and ``v`` are laid out like
+the params.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from .device import resolve_device
 from .models.model import SSM
 from .models.transformer import Transformer
+from .optim import AdamWState
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -42,6 +45,40 @@ def _flatten(tree, prefix=""):
             yield name, val
 
 
+def jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
+    """Where the port's ``state_dict`` entry ``name`` lives in the JAX tree:
+    its key path and, for a layer's tensor, its index on the stacked axis.
+    ``layers.3.attn.q`` -> ``(('layers', 'attn', 'q'), 3)``; ``embed`` ->
+    ``(('embed',), None)``."""
+    parts = name.split(".")
+    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        return ("layers", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+class LayerStack(list):
+    """The per-layer entries, in layer order, of one leaf that the JAX tree
+    stacks on a leading ``(n_layers,)`` axis."""
+
+
+def stack_layers(named: dict) -> dict:
+    """``{JAX key path: entry}`` for a dict keyed by the port's names; the
+    entries of ``layers.{i}.rest`` are gathered into one ``LayerStack``."""
+    out: dict = {}
+    layers: dict = {}
+    for name, val in named.items():
+        path, idx = jax_path(name)
+        if idx is None:
+            out[path] = val
+        else:
+            layers.setdefault(path, {})[idx] = val
+    for path, by_idx in layers.items():
+        if sorted(by_idx) != list(range(len(by_idx))):
+            raise ValueError(f"{'/'.join(path)}: layers {sorted(by_idx)} are not 0..n-1")
+        out[path] = LayerStack(by_idx[i] for i in range(len(by_idx)))
+    return out
+
+
 def state_dict_from_jax(tree) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU tensors) for a JAX param tree."""
     sd = {}
@@ -66,20 +103,36 @@ def from_jax(cfg, tree, device=None) -> Transformer | SSM:
     return model
 
 
+def named_to_jax(named: dict) -> dict:
+    """The JAX tree (numpy leaves, layers stacked) of a port-named dict."""
+    tree: dict = {}
+    for path, val in stack_layers(named).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (np.stack([_to_numpy(t) for t in val])
+                          if isinstance(val, LayerStack) else _to_numpy(val))
+    return tree
+
+
 def to_jax(model: Transformer | SSM) -> dict:
     """The JAX param tree (numpy leaves, layers stacked) of a port model."""
-    tree: dict = {}
-    stacked: dict[str, list] = {}
-    for name, t in model.state_dict().items():
-        if name.startswith("layers."):
-            _, idx, rest = name.split(".", 2)
-            stacked.setdefault(rest, []).append((int(idx), _to_numpy(t)))
-        else:
-            tree[name] = _to_numpy(t)
-    for rest, items in stacked.items():
-        node = tree.setdefault("layers", {})
-        *path, leaf = rest.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = np.stack([a for _, a in sorted(items, key=lambda x: x[0])])
-    return tree
+    return named_to_jax(model.state_dict())
+
+
+def opt_state_from_jax(state, device=None) -> AdamWState:
+    """The port's AdamW state for the JAX package's ``AdamWState``: ``m``
+    and ``v`` keyed by the port's parameter names, on ``device`` (default:
+    CUDA)."""
+    device = resolve_device(device)
+    move = lambda tree: {k: t.to(device) for k, t in state_dict_from_jax(tree).items()}
+    return AdamWState(m=move(state.m), v=move(state.v),
+                      count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
+                                         device=device))
+
+
+def opt_state_to_jax(state: AdamWState) -> tuple:
+    """``(m, v, count)`` as numpy trees laid out like the JAX params, the
+    fields of the JAX package's ``AdamWState`` in order."""
+    return (named_to_jax(state.m), named_to_jax(state.v),
+            np.asarray(state.count.cpu().numpy(), dtype=np.int32))

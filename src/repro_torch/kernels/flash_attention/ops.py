@@ -1,4 +1,4 @@
-"""Public wrapper for the flash-attention kernel (forward only).
+"""Public wrapper for the flash-attention kernel.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/kernel.py``
 (``_flash_kernel``, wrapped by ``ops.flash_attention``) with two CUDA C++
@@ -13,6 +13,11 @@ at the heads of the sources.
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
+
+The wrapper is a ``torch.autograd.Function``, as the reference's is a
+``custom_vjp``: the forward is the kernel, the backward recomputes the plain
+version from the saved inputs and differentiates it. It is not a kernel:
+the reference has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -69,11 +74,8 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v must be on one device")
 
 
-def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
-    """q: (B,S,H,hd); k, v: (B,S,KV,hd). Returns (B,S,H,hd) in q's dtype.
-    ``block_q``/``block_k`` are the TPU kernel's tile sizes: accepted, and
-    without effect on the result."""
-    _check(q, k, v)
+def _forward(q, k, v, causal, window):
+    """The forward: the plain version on the CPU, else the kernel."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -98,6 +100,34 @@ def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
         raise RuntimeError(f"{name}: CUDA error {err}")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward through ``_forward``; backward through ``attention_ref``,
+    recomputed from the saved q, k, v (the reference's ``_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v)
+        with torch.no_grad():
+            return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
+    """q: (B,S,H,hd); k, v: (B,S,KV,hd). Returns (B,S,H,hd) in q's dtype,
+    differentiable in q, k and v. ``block_q``/``block_k`` are the TPU
+    kernel's tile sizes: accepted, and without effect on the result."""
+    _check(q, k, v)
+    return FlashAttention.apply(q, k, v, causal, window)
 
 
 #: kernel launches since the count was last set to 0 (CPU calls not counted)

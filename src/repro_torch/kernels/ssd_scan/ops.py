@@ -1,4 +1,4 @@
-"""Public wrapper for the Mamba2 SSD chunked-scan kernel (forward only).
+"""Public wrapper for the Mamba2 SSD chunked-scan kernel.
 
 Replaces the TPU kernel ``repro/kernels/ssd_scan/kernel.py``
 (``_ssd_kernel``, wrapped by ``ops.ssd_scan``) with two CUDA C++ kernels,
@@ -15,6 +15,11 @@ notes at the heads of the sources.
 
 A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
+
+The wrapper is a ``torch.autograd.Function``, as the reference's is a
+``custom_vjp``: the forward is the kernel, the backward recomputes the plain
+version from the saved inputs and differentiates it. It is not a kernel:
+the reference has no backward kernel either.
 """
 from __future__ import annotations
 
@@ -81,11 +86,8 @@ def _check(x, dt, B, C, la, D):
         raise ValueError("ssd_scan: all inputs must be on one device")
 
 
-def ssd_scan(x, dt, B, C, la, D):
-    """x (b,nc,Q,H,P) f32 or bf16; dt, la (b,nc,Q,H), B, C (b,nc,Q,N) and
-    D (H,) f32. Returns y (b, nc*Q, H, P) in x's dtype and h_last
-    (b, H, N, P) in fp32."""
-    _check(x, dt, B, C, la, D)
+def _forward(x, dt, B, C, la, D):
+    """The forward: the plain version on the CPU, else the kernel."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, B, C, la, D)
     if x.device.type != "cuda":
@@ -124,6 +126,38 @@ def ssd_scan(x, dt, B, C, la, D):
         raise RuntimeError(f"{name}: CUDA error {err}")
     ssd_scan.launches += 1
     return y, h_last
+
+
+class SSDScan(torch.autograd.Function):
+    """Forward through ``_forward``; backward through ``ssd_scan_ref``,
+    recomputed from the saved inputs (the reference's ``_bwd``). A
+    gradient of y, of h_last or of both may arrive; an input that the used
+    outputs do not depend on (C and D for h_last alone) gets None."""
+
+    @staticmethod
+    def forward(ctx, x, dt, B, C, la, D):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, B, C, la, D)
+        with torch.no_grad():
+            return _forward(x, dt, B, C, la, D)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = [(o, g) for o, g in zip(ssd_scan_ref(*inputs), (gy, gh)) if g is not None]
+            if not outs:
+                return (None,) * len(inputs)
+            return torch.autograd.grad([o for o, _ in outs], inputs, [g for _, g in outs],
+                                       allow_unused=True)
+
+
+def ssd_scan(x, dt, B, C, la, D):
+    """x (b,nc,Q,H,P) f32 or bf16; dt, la (b,nc,Q,H), B, C (b,nc,Q,N) and
+    D (H,) f32. Returns y (b, nc*Q, H, P) in x's dtype and h_last
+    (b, H, N, P) in fp32, differentiable in all six inputs."""
+    _check(x, dt, B, C, la, D)
+    return SSDScan.apply(x, dt, B, C, la, D)
 
 
 #: calls that reached a kernel since the count was last set to 0: one a call,

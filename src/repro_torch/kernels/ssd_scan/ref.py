@@ -5,6 +5,16 @@ Inputs (pre-chunked): x (b,nc,Q,H,P), dt (b,nc,Q,H), B,C (b,nc,Q,N),
 la = dt * A (log-decay per step) (b,nc,Q,H), D (H,).
 Returns y (b, nc*Q, H, P) in x's dtype and the final state (b, H, N, P) in
 fp32 -- the contract of ``models/mamba2.ssd_chunked``.
+
+One deliberate difference from the reference: the decay matrix is
+``exp(where(causal, seg, -inf))``, not ``where(causal, exp(seg), 0)``. The
+values are the same, bit for bit. The gradient differs where the
+reference's is NaN: above the diagonal seg is a positive sum of decays,
+and once it passes ~88.7 its exp overflows to inf in fp32, so the masked
+branch's zero cotangent times inf gives NaN (at random init, full-width
+mamba2-2.7b reaches 57-104 in a chunk of 256, past 88.7 in 16 of its 64
+layers). The wrapper's backward differentiates this function, so training
+through the kernel needs the finite form.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ def ssd_scan_ref(x, dt, B, C, la, D):
         la_c, x_c, b_c, c_c, dt_c = la[:, c], x[:, c], Bf[:, c], Cf[:, c], dt[:, c]
         lcum = torch.cumsum(la_c, dim=1)                             # (b,Q,H)
         seg = lcum[:, :, None, :] - lcum[:, None, :, :]              # (b,Q,Q,H)
-        L = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        L = torch.exp(torch.where(causal[None, :, :, None], seg, -torch.inf))
         cb = torch.einsum("bin,bjn->bij", c_c, b_c)
         w = cb[..., None] * L
         xdt = x_c.float() * dt_c[..., None]

@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, RoPE, SwiGLU MLP, embedding, inits.
+"""Shared building blocks: norms, RoPE, SwiGLU MLP, embedding, inits, loss.
 
 Mirror of ``repro.models.layers``. Parameters keep the reference's shapes
 (``gate`` is ``(d_model, d_ff)``, not ``nn.Linear``'s transpose), so a JAX
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def _init(shape, scale, dtype, device, generator):
@@ -101,3 +102,35 @@ def embed_init(generator, vocab_padded, d_model, dtype, device=None):
 def embed_lookup(table, tokens):
     """``jnp.take(table, tokens, axis=0)`` for in-range token ids."""
     return F.embedding(tokens, table)
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+def softmax_xent(logits, labels, vocab_real: int, z_loss: float = 0.0):
+    """Cross-entropy in fp32 with padded-vocab masking. labels==-1 ignored.
+    The padded columns are replaced by -1e9 through a concatenation, not
+    written in place, so that no gradient reaches them."""
+    logits = logits.float()
+    vpad = logits.shape[-1]
+    if vpad > vocab_real:
+        logits = torch.cat([logits[..., :vocab_real],
+                            logits.new_full(logits[..., vocab_real:].shape, -1e9)], dim=-1)
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = labels >= 0
+    labels_safe = torch.where(valid, labels, 0).long()
+    picked = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (lse - picked) * valid
+    loss = nll.sum() / valid.sum().clamp(min=1)
+    if z_loss:
+        loss = loss + z_loss * (lse.square() * valid).mean()
+    return loss
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; with ``enabled`` its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint`` of a scan
+    body), so that every kernel of ``fn`` runs twice a step."""
+    if enabled:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)

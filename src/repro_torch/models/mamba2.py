@@ -103,7 +103,9 @@ def ssd_chunked(x, dt, B, C, A_log, D, chunk: int, use_kernel: bool = False):
         la_c, x_c, b_c, c_c, dt_c = la[:, c], xr[:, c], Br[:, c], Cr[:, c], dtr[:, c]
         lcum = torch.cumsum(la_c, dim=1)                             # (b,Q,H)
         seg = lcum[:, :, None, :] - lcum[:, None, :, :]              # (b,Q,Q,H)
-        L = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        # masked before the exp, as in ``kernels/ssd_scan/ref.py`` (which
+        # says why): the reference's exp-then-mask has NaN gradients
+        L = torch.exp(torch.where(causal[None, :, :, None], seg, -torch.inf))
         cb = torch.einsum("bin,bjn->bij", c_c, b_c)                  # (b,Q,Q)
         w = cb[..., None] * L                                        # (b,Q,Q,H)
         xdt = x_c.float() * dt_c[..., None]                          # (b,Q,H,P)

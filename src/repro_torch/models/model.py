@@ -1,4 +1,4 @@
-"""Uniform model facade: init / prefill / decode_step. Mirror of
+"""Uniform model facade: init / loss / prefill / decode_step. Mirror of
 ``repro.models.model`` for the dense transformer families and the pure-SSM
 family (mamba2); the hybrid (zamba2) family is not ported yet (ROADMAP
 Queue 1, item 10).
@@ -12,10 +12,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import _init, embed_init, embed_lookup, pad_vocab, rmsnorm, rmsnorm_init
+from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
+                     rmsnorm_init, softmax_xent)
 from .mamba2 import Mamba2, MambaCache, mamba2_decode, mamba2_forward
 from .transformer import (Transformer, transformer_decode_step,
-                          transformer_init, transformer_prefill)
+                          transformer_init, transformer_loss, transformer_prefill)
 
 
 # --------------------------------------------------------------------------
@@ -57,6 +58,25 @@ def _lm_logits(params, cfg, h):
     if cfg.tie_embeddings:
         return h @ params.embed.t()
     return h @ params.head
+
+
+def _ssm_layer(lp, h, cfg):
+    out, _ = mamba2_forward(lp, rmsnorm(h, lp.ln, cfg.norm_eps), chunk=cfg.ssm_chunk,
+                            use_kernel=cfg.use_ssd_kernel)
+    return h + out
+
+
+def _ssm_backbone(params, cfg, h):
+    """Every layer in turn; with ``cfg.remat`` each one is checkpointed."""
+    for lp in params.layers:
+        h = remat(cfg.remat, _ssm_layer, lp, h, cfg)
+    return h
+
+
+def ssm_loss(params, cfg, batch):
+    h = _ssm_backbone(params, cfg, embed_lookup(params.embed, batch["tokens"]))
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
 
 class SSMState(NamedTuple):
@@ -122,6 +142,13 @@ class Model:
         if self.cfg.family == "ssm":
             return ssm_init(gen, self.cfg, device)
         return transformer_init(gen, self.cfg, device)
+
+    def loss(self, params, batch):
+        """The training loss, differentiable in ``params``' tensors."""
+        self._check_ported()
+        if self.cfg.family == "ssm":
+            return ssm_loss(params, self.cfg, batch)
+        return transformer_loss(params, self.cfg, batch)
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len):

@@ -1,5 +1,5 @@
 """Decoder transformer, dense llama-style branch (GQA/MQA, optional sliding
-window). Mirror of ``repro.models.transformer``: init / prefill /
+window). Mirror of ``repro.models.transformer``: init / loss / prefill /
 decode_step. Layers are a Python loop over a ``ModuleList``; each layer's
 parameters keep the reference's per-layer shapes (the reference stacks them
 on a leading ``layers`` axis, ``repro_torch.convert`` splits it).
@@ -18,7 +18,7 @@ from torch import nn
 from .attention import (Attention, KVCache, cache_capacity, decode_attn,
                         multihead_attn)
 from .layers import (MLP, _init, embed_init, embed_lookup, mlp_apply, pad_vocab,
-                     rmsnorm, rmsnorm_init)
+                     remat, rmsnorm, rmsnorm_init, softmax_xent)
 
 
 def _head_dim(cfg):
@@ -84,6 +84,15 @@ def transformer_init(generator, cfg, device=None) -> Transformer:
     return Transformer(cfg, device, generator)
 
 
+def _scan_layers(params, cfg, h, positions):
+    """Every block in turn; with ``cfg.remat`` each one is checkpointed.
+    (The reference also sums the blocks' MoE aux losses: dense blocks have
+    none.)"""
+    for lp in params.layers:
+        h, _ = remat(cfg.remat, block_apply, lp, h, cfg, positions)
+    return h
+
+
 def _logits(params, cfg, h):
     if cfg.tie_embeddings:
         return h @ params.embed.t()
@@ -93,6 +102,17 @@ def _logits(params, cfg, h):
 def _embed_inputs(params, cfg, batch):
     _check_dense(cfg)
     return embed_lookup(params.embed, batch["tokens"])
+
+
+def transformer_loss(params, cfg, batch):
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["targets"]`` (-1 ignored), a 0-d fp32 tensor."""
+    h = _embed_inputs(params, cfg, batch)
+    B, S, _ = h.shape
+    positions = torch.arange(S, device=h.device).expand(B, S)
+    h = _scan_layers(params, cfg, h, positions)
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    return softmax_xent(_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
 
 # --------------------------------------------------------------------------

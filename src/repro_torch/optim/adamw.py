@@ -1,0 +1,87 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a cosine
+schedule. Mirror of ``repro.optim.adamw``, written out by hand rather than
+through ``torch.optim.AdamW``, whose order of operations and bias
+correction differ from the reference's.
+
+Trees are dicts of tensors keyed by the model's ``state_dict`` names. The
+moments ``m`` and ``v`` are fp32 for every parameter, bf16 ones included;
+``count`` is a 0-d int32 tensor on the parameters' device, so the schedule
+and the bias correction never wait for the host.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    m: dict
+    v: dict
+    count: torch.Tensor
+
+
+def adamw_init(params: dict) -> AdamWState:
+    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for k, p in params.items()}
+    device = next(iter(params.values())).device
+    return AdamWState(m=zeros, v={k: torch.zeros_like(z) for k, z in zeros.items()},
+                      count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def schedule(cfg: AdamWConfig, step):
+    """Linear warmup to ``cfg.lr``, then a cosine down to ``min_lr_frac`` of
+    it at ``total_steps``; fp32, as the reference computes it."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps) /
+                       max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def global_norm(tree: dict):
+    return torch.sqrt(sum(t.float().square().sum() for t in tree.values()))
+
+
+@torch.no_grad()
+def adamw_update(grads: dict, params: dict, state: AdamWState, cfg: AdamWConfig):
+    """One step. Returns (params, new state, gnorm) as the reference does,
+    but the parameters and the moments are updated in place: a functional
+    update would hold a second copy of each of them on the device.
+    Weight decay applies to every parameter, norms included."""
+    missing = [k for k in params if grads.get(k) is None]
+    if missing:
+        raise ValueError(f"adamw_update: no gradient for {missing}")
+    count = state.count + 1
+    gnorm = global_norm(grads)
+    scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+             if cfg.grad_clip else 1.0)
+    lr = schedule(cfg, count)
+    b1c = 1 - cfg.b1 ** count.float()
+    b2c = 1 - cfg.b2 ** count.float()
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        m, v = state.m[k], state.v[k]
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
+        p32 = p.float()
+        step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p32
+        p.copy_(p32 - lr * step)
+    return params, AdamWState(state.m, state.v, count), gnorm

@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PROBE = r"""
 import importlib, json, pkgutil, sys
 import repro_torch
-mods = ["repro_torch.launch.serve", "chip_smoke"] + [
+mods = ["repro_torch.launch.serve", "repro_torch.launch.train", "chip_smoke"] + [
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
@@ -36,6 +36,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert "repro_torch.launch.serve" in out["imported"]
     assert "repro_torch.kernels.flash_attention.ops" in out["imported"]
     assert "repro_torch.kernels.ssd_scan.ops" in out["imported"]
+    for mod in ("launch.train", "optim.adamw", "checkpoint.manager", "checkpoint.serializer",
+                "data.pipeline", "convert"):
+        assert f"repro_torch.{mod}" in out["imported"]
     assert out["bad"] == []
 
 
@@ -50,6 +53,15 @@ def test_serve_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve(get_smoke_config("tinyllama-1.1b"), n_requests=1, prompt_len=4,
               max_new=1, batch=1)
+
+
+def test_train_without_device_needs_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch.train import PRESETS, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(PRESETS["5m"], steps=1, batch=1, seq=8, ckpt_dir=str(tmp_path),
+              ckpt_every=1)
+    assert not any(tmp_path.iterdir())      # nothing written before the check
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b"])

@@ -1,5 +1,6 @@
-"""The port's copy of the I/O-aware runtime (core/, obs/, analysis/) is
-byte-identical to the JAX package's, and schedules a DAG identically."""
+"""The port's copy of the I/O-aware runtime (core/, obs/, analysis/) and
+of the data pipeline (data/) is byte-identical to the JAX package's, and
+schedules a DAG identically."""
 from pathlib import Path
 
 import pytest
@@ -8,7 +9,7 @@ import repro.core as rcore
 import repro_torch.core as tcore
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-PACKAGES = ("core", "obs", "analysis")
+PACKAGES = ("core", "obs", "analysis", "data")
 FILES = sorted(f"{pkg}/{p.name}" for pkg in PACKAGES
                for p in (SRC / "repro" / pkg).glob("*.py"))
 
