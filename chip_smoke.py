@@ -11,22 +11,27 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
   3. each kernel against its plain PyTorch version on the card, at the test
      cases (flash: every dtype route, and the tile-boundary cases; SSD:
      both routes, the bf16 one also against the CPU model of its TF32
-     roundings) and at the shape the serving path gives it; at that shape
-     its time (CUDA events around one call; then its device time alone,
-     for the SSD scan also with L2 flushed before each call, and its host
-     time a call), the plain version's, a PyTorch library call's where one
-     computes the same function (a yardstick only) and its bound (the least
-     time the card could take for the same work);
+     roundings) and at the shapes the serving paths give it (tinyllama-1.1b
+     and zamba2-1.2b for flash, mamba2-2.7b and zamba2-1.2b for the SSD
+     scan); at those shapes its time (CUDA events around one call; then its
+     device time alone, for the SSD scan also with L2 flushed before each
+     call, and its host time a call), the plain version's, a PyTorch library
+     call's where one computes the same function (a yardstick only) and its
+     bound (the least time the card could take for the same work);
   4. full-width fp32 prefills on the same seeded weights and prompt:
      tinyllama-1.1b, flash kernel against the dense path; mamba2-2.7b, SSD
-     kernel against the plain scan;
+     kernel against the plain scan; zamba2-1.2b (full depth), both kernels
+     against both plain paths;
   5. the main paths, each with every kernel's launch count set to 0 just
      before and read just after: ``serve`` in bf16, 8 requests of 1024
      prompt tokens + 64 new tokens, on full-width tinyllama-1.1b through the
-     flash kernel and on full-width mamba2-2.7b through the SSD kernel;
+     flash kernel, on full-width mamba2-2.7b through the SSD kernel and on
+     full-width zamba2-1.2b through both (the shared attention block at 7
+     sites, 38 Mamba2 layers);
   6. gradients through the kernels: fp32, full width, 2 layers, 1024
-     tokens; the loss and every parameter's gradient with the kernel flag on
-     (the kernel forward, its autograd backward) and off (the plain path);
+     tokens; the loss and every parameter's gradient with the kernel flags
+     on (the kernel forward, its autograd backward) and off (the plain
+     path), for tinyllama-1.1b, mamba2-2.7b and zamba2-1.2b (both kernels);
   7. the train path: ``train`` on full-width, full-depth tinyllama-1.1b in
      bf16 through the flash kernel, batch 4 x 1024 tokens: 4 I/O-aware
      steps with one asynchronous checkpoint under ``build/``, a bit-for-bit
@@ -35,7 +40,9 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      cannot hold a checkpoint;
   8. ``train`` on full-width, full-depth mamba2-2.7b in bf16 through the SSD
      kernel, batch 4 x 1024 tokens, 2 steps, no checkpoint;
-  9. one JSON line of train numbers, one of kernel numbers, then the result
+  9. ``train`` on full-width, full-depth zamba2-1.2b in bf16 through both
+     kernels, batch 4 x 1024 tokens, 2 steps, no checkpoint;
+ 10. one JSON line of train numbers, one of kernel numbers, then the result
      line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -82,6 +89,9 @@ BOUNDARY_CASES = [
     (1, 129, 8, 1, 64, False, 0),
 ]
 SLICE_CASE = (4, 1024, 32, 4, 64, True, 0)
+# zamba2-1.2b's shared attention block at batch 4 x 1024 tokens: 32 heads of
+# 64 over a 2 x 2048-wide input, as many KV heads as query heads (G = 1)
+ZAMBA_FLASH_CASE = (4, 1024, 32, 32, 64, True, 0)
 FLASH_DTYPES = ("float32", "bfloat16", "float16")
 # f32: the exact route, summation orders differ; bf16 / fp16: P and the
 # output are rounded to the input type. fp16 keeps 3 more mantissa bits than
@@ -100,13 +110,16 @@ SSD_CASES = [
     (4, 2, 8, 8, 16, 16),
 ]
 SSD_SLICE_CASE = (4, 4, 256, 80, 64, 128)
+# zamba2-1.2b's Mamba2 layers at batch 4 x 1024 tokens: 64 heads of 64, state 64
+ZAMBA_SSD_CASE = (4, 4, 256, 64, 64, 64)
 # f32: summation orders differ; bf16: the reference's own tolerance, which
 # also covers the kernel's fp32 add of D.x before its one cast. At the
 # serving shape the sums run over 256 steps x 128 states with terms up to
 # the size of the largest output, and two fp32 orders differ there by up to
-# ~8e-6 of it (1.6e-3 against outputs up to 218 on the H100): in f32 that
-# shape's absolute tolerance is 1e-4 of the largest |output|
+# ~8e-6 of it (1.6e-3 against outputs up to 218 on the H100): in f32 the
+# serving shapes' absolute tolerance is 1e-4 of the largest |output|
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_SERVING_CASES = (SSD_SLICE_CASE, ZAMBA_SSD_CASE)
 # bf16 route against its CPU model of the same roundings (ref.ssd_scan_tf32_ref)
 # on the same inputs: |kernel - model| <= 1e-3 max|model| + 1e-2 |model|. The
 # two differ where a tf32 truncation falls on the other side in one of them
@@ -118,7 +131,7 @@ SSD_MODEL_TOL = (1e-3, 1e-2)
 # full-width fp32 prefill, kernel vs plain path: both sum in fp32, in
 # different orders (flash: online softmax over 64-key tiles vs one softmax
 # over the row; SSD: 64-row tiles and a warp scan vs whole-chunk einsums and
-# cumsum); 22 or 64 random-weight layers carry those ~1e-7 relative
+# cumsum); 22, 64 or 38 + 7 random-weight layers carry those ~1e-7 relative
 # differences into the logits, so agreement is asked to 1e-3 of the largest
 # logit
 PREFILL_RTOL = 1e-3
@@ -346,7 +359,7 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
     for out, ref in ((y.float(), ry.float()), (h, rh)):
         err = max(err, (out - ref).abs().max().item())
         atol = tol * (ref.abs().max().item()
-                      if case == SSD_SLICE_CASE and dtype == "float32" else 1.0)
+                      if case in SSD_SERVING_CASES and dtype == "float32" else 1.0)
         if ((out - ref).abs() > atol + tol * ref.abs()).any() or not torch.isfinite(out).all():
             raise AssertionError(f"ssd {case} {dtype}: max |err| {err:.3g} over "
                                  f"tolerance {atol:.3g} + {tol} |ref|")
@@ -370,7 +383,7 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
            # no single PyTorch call computes the SSD scan
            "library_ms": None,
            "device_ms": kern["device_ms"], "host_ms": kern["host_ms"]}
-    if case == SSD_SLICE_CASE:
+    if case in SSD_SERVING_CASES:
         row["device_l2_flushed_ms"] = l2_flushed_ms(torch, lambda: ops.ssd_scan(x, dt, B, C,
                                                                                   la, D))
     print(f"[ssd] b,nc,Q,H,P,N={case} {dtype}: max|err| {err:.3g} (tol {tol}){model_note}; "
@@ -385,27 +398,31 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
     return row
 
 
-def check_prefill(torch, np, Model, cfg32, flag, counter):
+def counts(kernels):
+    return {k["name"]: k["counter"].launches for k in kernels}
+
+
+def check_prefill(torch, np, Model, cfg32, kernels, flags, want):
     """Full-width fp32 prefill at B=1, S=1024 on one set of seeded weights,
-    with ``flag`` on (through the kernel) and off (the plain path)."""
+    with every flag of ``flags`` on (through the kernels) and off (the plain
+    paths); ``want``: each kernel's launches with them on."""
     params = Model(cfg32).init(0, device="cuda")
     prompt = np.random.default_rng(0).integers(0, cfg32.vocab_size, size=(1, 1024))
     batch = {"tokens": torch.from_numpy(prompt).cuda()}
-    n0 = counter.launches
-    lk, _ = Model(cfg32.replace(**{flag: True})).prefill(params, batch, 1024)
-    n_kernel = counter.launches - n0
-    lp, _ = Model(cfg32.replace(**{flag: False})).prefill(params, batch, 1024)
+    n0 = counts(kernels)
+    lk, _ = Model(cfg32.replace(**{f: True for f in flags})).prefill(params, batch, 1024)
+    n_kernel = {k: n - n0[k] for k, n in counts(kernels).items()}
+    lp, _ = Model(cfg32.replace(**{f: False for f in flags})).prefill(params, batch, 1024)
     torch.cuda.synchronize()
     diff = (lk - lp).abs().max().item()
     scale = lp.abs().max().item()
-    print(f"[prefill] {cfg32.name} fp32 B=1 S=1024: {flag} on vs off max|diff| "
+    print(f"[prefill] {cfg32.name} fp32 B=1 S=1024: {'+'.join(flags)} on vs off max|diff| "
           f"{diff:.3g}, max|logit| {scale:.3g}, relative {diff / scale:.3g} "
           f"(limit {PREFILL_RTOL}), kernel launches {n_kernel}")
-    if n_kernel != cfg32.n_layers:
-        raise AssertionError(f"prefill launched the kernel {n_kernel} times, "
-                             f"expected {cfg32.n_layers}")
+    if n_kernel != want:
+        raise AssertionError(f"prefill launched {n_kernel}, expected {want}")
     if not (torch.isfinite(lk).all() and diff <= PREFILL_RTOL * scale):
-        raise AssertionError(f"the {flag} prefills disagree: {diff:.3g} > "
+        raise AssertionError(f"the {flags} prefills disagree: {diff:.3g} > "
                              f"{PREFILL_RTOL} * {scale:.3g}")
     del params, lk, lp
     torch.cuda.empty_cache()
@@ -439,7 +456,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels):
             k["counter"].launches = 0
         out = serve_mod.serve(cfg, trace_path=str(trace), device="cuda", **SERVE)
         torch.cuda.synchronize()
-        launches = {k["name"]: k["counter"].launches for k in kernels}
+        launches = counts(kernels)
     finally:
         serve_mod.Model = Model
     peak = torch.cuda.max_memory_allocated()
@@ -461,11 +478,12 @@ def serve_path(torch, serve_mod, Model, cfg, kernels):
     return launches
 
 
-def check_train_grads(torch, np, Model, cfg32, flag, counter):
+def check_train_grads(torch, np, Model, cfg32, kernels, flags, want):
     """Phase 6: fp32, full width, 2 layers, B=1 x 1024 tokens. The loss and
-    every gradient leaf with ``flag`` on and off; no parameter without a
-    gradient through the kernel; the kernel launched twice a layer (the
-    forward, and its re-run under remat)."""
+    every gradient leaf with every flag of ``flags`` on and off; no
+    parameter without a gradient through the kernels; ``want``: each
+    kernel's launches with them on (a kernel under remat runs twice a
+    layer: the forward, and its re-run)."""
     cfg = cfg32.replace(n_layers=2)
     params = Model(cfg).init(0, device="cuda")
     rng = np.random.default_rng(0)
@@ -473,29 +491,30 @@ def check_train_grads(torch, np, Model, cfg32, flag, counter):
              for k in ("tokens", "targets")}
     losses, grads, launches = [], [], []
     for on in (True, False):
-        n0 = counter.launches
-        loss = Model(cfg.replace(**{flag: on})).loss(params, batch)
+        n0 = counts(kernels)
+        loss = Model(cfg.replace(**{f: on for f in flags})).loss(params, batch)
         loss.backward()
         torch.cuda.synchronize()
-        launches.append(counter.launches - n0)
+        launches.append({k: n - n0[k] for k, n in counts(kernels).items()})
         missing = [k for k, p in params.named_parameters() if p.grad is None]
         if missing:
-            raise AssertionError(f"{cfg.name} {flag}={on}: no gradient for {missing}")
+            raise AssertionError(f"{cfg.name} {flags}={on}: no gradient for {missing}")
         grads.append({k: p.grad for k, p in params.named_parameters()})
         losses.append(loss.item())
         params.zero_grad(set_to_none=True)
     worst, worst_leaf = 0.0, None
     for k, g in grads[0].items():
-        want = grads[1][k]
-        frac = ((g - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+        plain = grads[1][k]
+        frac = ((g - plain).abs().max() / plain.abs().max().clamp(min=1e-30)).item()
         if not frac <= worst:
             worst, worst_leaf = frac, k
     print(f"[grads] {cfg.name} fp32 2 layers B=1 S=1024: loss {losses[0]:.6f} "
-          f"({flag} on) vs {losses[1]:.6f} (off); {len(grads[0])} gradient leaves, "
-          f"worst |diff| {worst:.3g} of its leaf's max |g| ({worst_leaf}; limit "
+          f"({'+'.join(flags)} on) vs {losses[1]:.6f} (off); {len(grads[0])} gradient "
+          f"leaves, worst |diff| {worst:.3g} of its leaf's max |g| ({worst_leaf}; limit "
           f"{GRAD_RTOL}); kernel launches {launches[0]} on, {launches[1]} off")
-    if launches != [2 * cfg.n_layers, 0]:
-        raise AssertionError(f"launches {launches}, expected [{2 * cfg.n_layers}, 0]")
+    off = {k: 0 for k in want}
+    if launches != [want, off]:
+        raise AssertionError(f"launches {launches}, expected [{want}, {off}]")
     if not (np.isfinite(losses).all() and abs(losses[0] - losses[1]) <= GRAD_RTOL * abs(losses[1])
             and worst <= GRAD_RTOL):
         raise AssertionError(f"{cfg.name}: kernel and plain gradients disagree: {worst:.3g} "
@@ -507,9 +526,8 @@ def check_train_grads(torch, np, Model, cfg32, flag, counter):
 def ckpt_bytes(cfg):
     """Bytes of one checkpoint of (params, AdamW state): the params in their
     dtypes and fp32 m and v, from a model on the meta device."""
-    from repro_torch.models.model import SSM
-    from repro_torch.models.transformer import Transformer
-    m = (SSM if cfg.family == "ssm" else Transformer)(cfg, device="meta")
+    from repro_torch.models.model import model_class
+    m = model_class(cfg)(cfg, device="meta")
     return sum(p.numel() * (p.element_size() + 8) for p in m.parameters())
 
 
@@ -568,7 +586,7 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
             k["counter"].launches = 0
         out = train_mod.train(cfg, log_path=str(log), device="cuda", **TRAIN, **kw)
         torch.cuda.synchronize()
-        launches = {k["name"]: k["counter"].launches for k in kernels}
+        launches = counts(kernels)
     finally:
         train_mod.CheckpointManager = Timed.__mro__[1]
         manager_mod.to_host = to_host
@@ -684,12 +702,12 @@ def _leaves(tree):
             yield (f"{key}[{i}]" if isinstance(leaf, list) else key), t
 
 
-def train_ssm(torch, train_mod, cfg, kernels):
-    """Phase 8: 2 steps, no checkpoint; the SSD kernel twice a layer a step."""
-    out, launches, nums = train_run(torch, train_mod, cfg, kernels, "ssm", steps=2,
+def train_steps(torch, train_mod, cfg, kernels, name, per_step):
+    """Phases 8-9: 2 I/O-aware steps, no checkpoint; ``per_step``: each
+    kernel's launches a step."""
+    out, launches, nums = train_run(torch, train_mod, cfg, kernels, name, steps=2,
                                     ckpt_dir=None, ckpt_every=0, io_aware=True)
-    want = {k["name"]: 2 * cfg.n_layers * 2 if k["name"] == "ssd_scan_fwd" else 0
-            for k in kernels}
+    want = {k: 2 * n for k, n in per_step.items()}
     if launches != want or out["steps_run"] != 2:
         raise AssertionError(f"{cfg.name} train launched {launches} in {out['steps_run']} "
                              f"steps, expected {want} in 2")
@@ -739,69 +757,96 @@ def main() -> int:
     # 3. kernels against their plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for case in FLASH_CASES + BOUNDARY_CASES:
+    for case in FLASH_CASES + BOUNDARY_CASES + [ZAMBA_FLASH_CASE]:
         for dtype in FLASH_DTYPES:
             check_flash(torch, ops, attention_ref, case, dtype)
     for dtype in ("bfloat16", "float16"):
         check_flash_masked(torch, ops, dtype)
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float32", timed=True)
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float16", timed=True)
-    # each kernel's numbers at the main path's shape, for the kernels line
+    # each kernel's numbers at the main paths' shapes, for the kernels line
     rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref, SLICE_CASE,
                                                "bfloat16", timed=True)}
+    zamba_rows = {"flash_attention_fwd": check_flash(torch, ops, attention_ref,
+                                                     ZAMBA_FLASH_CASE, "bfloat16", timed=True)}
     # f32 through the exact route, bf16 through the tf32 tensor-core route
     for case in SSD_CASES:
         check_ssd(torch, ssd_ops, ssd_scan_ref, case, "float32")
         check_ssd(torch, ssd_ops, ssd_scan_ref, case, "bfloat16", model=ssd_scan_tf32_ref)
-    check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE, "float32")
+    for case in SSD_SERVING_CASES:
+        check_ssd(torch, ssd_ops, ssd_scan_ref, case, "float32")
     rows["ssd_scan_fwd"] = check_ssd(torch, ssd_ops, ssd_scan_ref, SSD_SLICE_CASE,
                                      "bfloat16", model=ssd_scan_tf32_ref)
+    zamba_rows["ssd_scan_fwd"] = check_ssd(torch, ssd_ops, ssd_scan_ref, ZAMBA_SSD_CASE,
+                                           "bfloat16", model=ssd_scan_tf32_ref)
+    zamba_rows["flash_attention_fwd"]["case"] = ZAMBA_FLASH_CASE
+    zamba_rows["ssd_scan_fwd"]["case"] = ZAMBA_SSD_CASE
 
-    # 4. full-width fp32 prefills: each kernel against the plain path
-    check_prefill(torch, np, Model, get_config("tinyllama-1.1b").replace(
-        dtype=torch.float32), "use_flash", ops.flash_attention)
-    check_prefill(torch, np, Model, get_config("mamba2-2.7b").replace(
-        dtype=torch.float32), "use_ssd_kernel", ssd_ops.ssd_scan)
+    # each arch's kernel flags, and each kernel's launches in one forward:
+    # flash once a site of zamba2's shared block (7 in 38 layers) or once a
+    # tinyllama layer, SSD once a Mamba2 layer
+    K1, K2 = "flash_attention_fwd", "ssd_scan_fwd"
+    zamba = get_config("zamba2-1.2b")
+    sites = len(range(0, zamba.n_layers, zamba.attn_every))
+    archs = {"tinyllama-1.1b": (("use_flash",),
+                                {K1: get_config("tinyllama-1.1b").n_layers, K2: 0}),
+             "mamba2-2.7b": (("use_ssd_kernel",),
+                             {K1: 0, K2: get_config("mamba2-2.7b").n_layers}),
+             "zamba2-1.2b": (("use_flash", "use_ssd_kernel"), {K1: sites, K2: zamba.n_layers})}
 
-    # 5. the main paths: each kernel's launches on its own serving path
+    # 4. full-width fp32 prefills: the kernels against the plain paths
+    for arch, (flags, per_pass) in archs.items():
+        check_prefill(torch, np, Model, get_config(arch).replace(dtype=torch.float32),
+                      kernels, flags, per_pass)
+
+    # 5. the main paths: each kernel's launches on each serving path
     waves = -(-SERVE["n_requests"] // SERVE["batch"])
-    launches = {}
-    for arch, flag, name in (("tinyllama-1.1b", "use_flash", "flash_attention_fwd"),
-                             ("mamba2-2.7b", "use_ssd_kernel", "ssd_scan_fwd")):
-        cfg = get_config(arch).replace(**{flag: True})
+    serve_launches = {}
+    for arch, (flags, per_pass) in archs.items():
+        cfg = get_config(arch).replace(**{f: True for f in flags})
         got = serve_path(torch, serve_mod, Model, cfg, kernels)
-        expect = {k["name"]: waves * cfg.n_layers if k["name"] == name else 0
-                  for k in kernels}
+        expect = {k: waves * n for k, n in per_pass.items()}
         if got != expect:
             raise AssertionError(f"{arch} serve launched {got}, expected {expect}")
-        launches[name] = got[name]
+        serve_launches[arch] = got
 
-    # 6. gradients through each kernel against the plain path
-    check_train_grads(torch, np, Model, get_config("tinyllama-1.1b").replace(
-        dtype=torch.float32), "use_flash", ops.flash_attention)
-    check_train_grads(torch, np, Model, get_config("mamba2-2.7b").replace(
-        dtype=torch.float32), "use_ssd_kernel", ssd_ops.ssd_scan)
+    # 6. gradients through the kernels against the plain paths, 2 layers (for
+    # zamba2: one site); remat re-runs the SSD kernel, not the shared block
+    grad_launches = {"tinyllama-1.1b": {K1: 4, K2: 0}, "mamba2-2.7b": {K1: 0, K2: 4},
+                     "zamba2-1.2b": {K1: 1, K2: 4}}
+    for arch, (flags, _) in archs.items():
+        check_train_grads(torch, np, Model, get_config(arch).replace(dtype=torch.float32),
+                          kernels, flags, grad_launches[arch])
 
-    # 7-8. the train paths: each kernel's launches on its own train path
+    # 7-9. the train paths: each kernel's launches on each train path
     train_nums = {"card": smi}
     dense = get_config("tinyllama-1.1b").replace(use_flash=True)
     flash_train, train_nums[dense.name] = train_dense(torch, train_mod, CheckpointManager,
                                                       dense, kernels)
     ssm = get_config("mamba2-2.7b").replace(use_ssd_kernel=True)
-    ssd_train, train_nums[ssm.name] = train_ssm(torch, train_mod, ssm, kernels)
+    ssd_train, train_nums[ssm.name] = train_steps(torch, train_mod, ssm, kernels, "ssm",
+                                                  {K1: 0, K2: 2 * ssm.n_layers})
+    hybrid = zamba.replace(use_flash=True, use_ssd_kernel=True)
+    hybrid_train, train_nums[hybrid.name] = train_steps(
+        torch, train_mod, hybrid, kernels, "hybrid", {K1: sites, K2: 2 * hybrid.n_layers})
     train_paths = {
-        "flash_attention_fwd": (flash_train["flash_attention_fwd"],
-                                "tinyllama-1.1b train, I/O-aware, 4 steps of 4 x 1024 tokens"),
-        "ssd_scan_fwd": (ssd_train["ssd_scan_fwd"],
-                         "mamba2-2.7b train, 2 steps of 4 x 1024 tokens")}
+        K1: (flash_train[K1], "tinyllama-1.1b train, I/O-aware, 4 steps of 4 x 1024 tokens"),
+        K2: (ssd_train[K2], "mamba2-2.7b train, 2 steps of 4 x 1024 tokens")}
+    launches = {K1: serve_launches["tinyllama-1.1b"][K1],
+                K2: serve_launches["mamba2-2.7b"][K2]}
 
-    # 9. train numbers, kernel numbers, then the result line
+    # 10. train numbers, kernel numbers, then the result line
     print(json.dumps({"train": train_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
          "replaces": k["replaces"], "launches": launches[k["name"]], **rows[k["name"]],
-         "train_launches": train_paths[k["name"]][0], "train_path": train_paths[k["name"]][1]}
+         "train_launches": train_paths[k["name"]][0], "train_path": train_paths[k["name"]][1],
+         "zamba2": {"serve_launches": serve_launches["zamba2-1.2b"][k["name"]],
+                    "train_launches": hybrid_train[k["name"]],
+                    "paths": "zamba2-1.2b serve (8 requests, 2 waves of 4 x 1024) and "
+                             "train (2 steps of 4 x 1024 tokens)",
+                    **zamba_rows[k["name"]]}}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

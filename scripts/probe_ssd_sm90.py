@@ -18,10 +18,10 @@ under build/probe/ (the committed source is not touched):
       each part's cost;
   python3 scripts/probe_ssd_sm90.py --stress [--reps 8]
       the committed kernel, through its wrapper, on STRESS shapes (2-4 row
-      tiles a chunk, more blocks than SMs, odd N and P), each run --reps
-      times: the count of y and h elements outside the bf16 tolerance of
-      the plain version. A race between the kernel's warps shows as counts
-      that are not 0 at random.
+      tiles a chunk, more blocks than SMs, odd N and P, and zamba2-1.2b's
+      N = 64 with 256-long chunks), each run --reps times: the count of y
+      and h elements outside the bf16 tolerance of the plain version. A race
+      between the kernel's warps shows as counts that are not 0 at random.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ OUT = ROOT / "build" / "probe"
 CASE = (4, 4, 256, 80, 64, 128)
 STRESS = [(1, 2, 128, 140, 64, 128), (2, 3, 128, 100, 64, 64), (1, 3, 128, 100, 64, 64),
           (4, 4, 256, 80, 64, 128), (2, 2, 64, 200, 32, 64), (3, 3, 192, 90, 64, 96),
-          (2, 5, 100, 70, 32, 64), (1, 2, 256, 70, 128, 128)]
+          (2, 5, 100, 70, 32, 64), (1, 2, 256, 70, 128, 128), (4, 4, 256, 64, 64, 64)]
 PHASES = ["total", "prologue", "inputs_wait", "inter", "intra", "epilogue", "state",
           "ring_wait"]
 

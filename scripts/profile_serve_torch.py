@@ -1,12 +1,13 @@
 """Where the time of the port's serving path goes, on one GPU.
 
-  python3 scripts/profile_serve_torch.py [--arch tinyllama-1.1b|mamba2-2.7b]
+  python3 scripts/profile_serve_torch.py [--arch tinyllama-1.1b|mamba2-2.7b|zamba2-1.2b]
       [--max-new 16] [--out build/profile_serve_<arch>.txt]
 
-Serves a full-width model in bf16 through its kernel (tinyllama-1.1b:
-flash attention; mamba2-2.7b: the SSD scan) via ``repro_torch.launch.serve``
+Serves a full-width model in bf16 through its kernels (tinyllama-1.1b:
+flash attention; mamba2-2.7b: the SSD scan; zamba2-1.2b: both) via
+``repro_torch.launch.serve``
 once to warm up, then profiles under ``torch.profiler``:
-  1. one prefill wave alone: wall, device-busy time, the kernel's device
+  1. one prefill wave alone: wall, device-busy time, each kernel's device
      time and the matrix products' (``aten::mm``/``bmm``/``addmm``);
   2. decode steps alone: wall a step, kernel launches a step, device-busy
      share;
@@ -23,13 +24,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# the kernel each model's serving path runs: (config flag, a substring of its
-# device-kernel names; "flash_fwd" matches both flash routes, the bf16/fp16
-# flash_fwd_sm90_kernel and the fp32 flash_fwd_kernel; "ssd_" every kernel of
-# both SSD routes: the bf16 route's C.B^T pass ssd_cb_kernel and its scan
-# ssd_scan_sm90_kernel, two launches a call, and the fp32 ssd_fwd_kernel)
-KERNEL = {"tinyllama-1.1b": ("use_flash", "flash_fwd"),
-          "mamba2-2.7b": ("use_ssd_kernel", "ssd_")}
+# the kernels each model's serving path runs: (config flags, a substring of
+# each kernel's device-kernel names; "flash_fwd" matches both flash routes,
+# the bf16/fp16 flash_fwd_sm90_kernel and the fp32 flash_fwd_kernel; "ssd_"
+# every kernel of both SSD routes: the bf16 route's C.B^T pass ssd_cb_kernel
+# and its scan ssd_scan_sm90_kernel, two launches a call, and the fp32
+# ssd_fwd_kernel)
+KERNEL = {"tinyllama-1.1b": (("use_flash",), ("flash_fwd",)),
+          "mamba2-2.7b": (("use_ssd_kernel",), ("ssd_",)),
+          "zamba2-1.2b": (("use_flash", "use_ssd_kernel"), ("flash_fwd", "ssd_"))}
 MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
 
 
@@ -46,6 +49,16 @@ def busy_ms(intervals):
     if cur_e is not None:
         total += cur_e - cur_s
     return total / 1e3
+
+
+def kernel_ms(kernels, knames):
+    """``name: device ms over n launches`` for each name of ``knames``."""
+    parts = []
+    for kname in knames:
+        kern = [e for e in kernels if kname in e.name]
+        ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        parts.append((kname, ms, len(kern)))
+    return parts
 
 
 def profiled(torch, fn):
@@ -85,8 +98,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    flag, kname = KERNEL[args.arch]
-    cfg = get_config(args.arch).replace(**{flag: True})
+    flags, knames = KERNEL[args.arch]
+    cfg = get_config(args.arch).replace(**{f: True for f in flags})
     kw = dict(n_requests=args.requests, batch=args.batch,
               prompt_len=args.prompt_len, max_new=args.max_new, device="cuda")
     serve(cfg, **kw)                                    # warm-up
@@ -111,14 +124,15 @@ def main(argv=None) -> int:
 
     wall, kernels, prof = profiled(torch, prefill)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-    kern = [e for e in kernels if kname in e.name]
-    kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    kern = kernel_ms(kernels, knames)
+    kern_ms = sum(ms for _, ms, _ in kern)
     mm_ms = sum(a.self_device_time_total for a in prof.key_averages()
                 if a.key in MATMUL_OPS) / 1e3
     print(f"[prefill] {args.arch} B={args.batch} S={args.prompt_len}: wall {wall:.1f} ms, "
-          f"device busy {busy:.1f} ms; {kname} {kern_ms:.2f} ms over {len(kern)} launches "
-          f"({100 * kern_ms / busy:.1f}% of device busy); "
-          f"matrix products {mm_ms:.2f} ms; other {busy - kern_ms - mm_ms:.2f} ms; "
+          f"device busy {busy:.1f} ms; "
+          + "; ".join(f"{k} {ms:.2f} ms over {n} launches ({100 * ms / busy:.1f}% of "
+                      f"device busy)" for k, ms, n in kern)
+          + f"; matrix products {mm_ms:.2f} ms; other {busy - kern_ms - mm_ms:.2f} ms; "
           f"{len(kernels)} kernel launches")
     wall, kernels, prof = profiled(torch, decode)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -137,8 +151,7 @@ def main(argv=None) -> int:
     wall, kernels, prof = profiled(torch, lambda: box.update(out=serve(cfg, **kw)))
     out = box["out"]
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-    kern = [e for e in kernels if kname in e.name]
-    kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    kern = kernel_ms(kernels, knames)
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
     dest = Path(args.out or ROOT / "build" / f"profile_serve_{args.arch}.txt")
     dest.parent.mkdir(parents=True, exist_ok=True)
@@ -147,8 +160,8 @@ def main(argv=None) -> int:
     print(f"[profile] {args.arch}: wall {wall:.1f} ms for {out['new_tokens']} tokens "
           f"({steps} decode steps, {out['tokens_per_s']:.2f} tok/s); "
           f"device busy {busy:.1f} ms = {100 * busy / wall:.1f}% of wall; "
-          f"{kname} {kern_ms:.2f} ms over {len(kern)} launches; "
-          f"{len(kernels)} kernel launches in all")
+          + "".join(f"{k} {ms:.2f} ms over {n} launches; " for k, ms, n in kern)
+          + f"{len(kernels)} kernel launches in all")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12))
     return 0
 

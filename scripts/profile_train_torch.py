@@ -1,15 +1,16 @@
 """Where the time of the port's train path goes, and how much of a
 checkpoint the I/O-aware runtime hides, on one GPU.
 
-  python3 scripts/profile_train_torch.py [--arch tinyllama-1.1b|mamba2-2.7b]
+  python3 scripts/profile_train_torch.py [--arch tinyllama-1.1b|mamba2-2.7b|zamba2-1.2b]
       [--steps 3] [--overlap-steps 80] [--ckpt-every 40]
       [--order io,base,base,io]
 
-Trains a full-width model in bf16 through its kernel (tinyllama-1.1b: flash
-attention; mamba2-2.7b: the SSD scan), batch 4 x 1024 tokens:
+Trains a full-width model in bf16 through its kernels (tinyllama-1.1b: flash
+attention; mamba2-2.7b: the SSD scan; zamba2-1.2b: both), batch 4 x 1024
+tokens:
   1. ``--steps`` train steps after a warm-up one, each cut at device
      synchronisations into the loss forward, the backward and AdamW (host
-     clock); then one step under ``torch.profiler``: device-busy share, the
+     clock); then one step under ``torch.profiler``: device-busy share, each
      kernel's device time, the matrix products', the top kernels;
   2. with ``--overlap-steps``: ``train`` in the I/O-aware mode (``io``:
      asynchronous checkpoints, prefetched batches) and the baseline
@@ -35,8 +36,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
-KERNEL = {"tinyllama-1.1b": ("use_flash", "flash_fwd"),
-          "mamba2-2.7b": ("use_ssd_kernel", "ssd_")}
+from profile_serve_torch import KERNEL  # noqa: E402  (each arch's kernel flags)
 
 
 def step_parts(torch, model, params, opt_state, batch, opt):
@@ -76,7 +76,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke
-    from profile_serve_torch import MATMUL_OPS, busy_ms, profiled
+    from profile_serve_torch import MATMUL_OPS, busy_ms, kernel_ms, profiled
     from repro_torch.data import SyntheticCorpus
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -88,8 +88,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    flag, kname = KERNEL[args.arch]
-    cfg = get_config(args.arch).replace(**{flag: True})
+    flags, knames = KERNEL[args.arch]
+    cfg = get_config(args.arch).replace(**{f: True for f in flags})
     B, S = chip_smoke.TRAIN["batch"], chip_smoke.TRAIN["seq"]
 
     # 1. one step cut into its parts, then profiled
@@ -113,14 +113,14 @@ def main(argv=None) -> int:
         opt_state, _ = step_parts(torch, model, params, opt_state, batch, opt)
     wall, kernels, prof = profiled(torch, one_step)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
-    kern = [e for e in kernels if kname in e.name]
-    kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    kern = kernel_ms(kernels, knames)
     mm_ms = sum(a.self_device_time_total for a in prof.key_averages()
                 if a.key in MATMUL_OPS) / 1e3
     print(f"[profile] one step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall:.1f}%); {kname} {kern_ms:.2f} ms over {len(kern)} launches "
-          f"({100 * kern_ms / busy:.1f}% of busy); matrix products {mm_ms:.1f} ms "
-          f"({100 * mm_ms / busy:.1f}%)")
+          f"({100 * busy / wall:.1f}%); "
+          + "; ".join(f"{k} {ms:.2f} ms over {n} launches ({100 * ms / busy:.1f}% of busy)"
+                      for k, ms, n in kern)
+          + f"; matrix products {mm_ms:.1f} ms ({100 * mm_ms / busy:.1f}%)")
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12)
     print("\n".join(table.splitlines()[:16]))
     del model, params, opt_state, prof, kernels

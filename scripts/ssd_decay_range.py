@@ -39,7 +39,7 @@ def main(argv=None) -> int:
     from repro_torch.data import SyntheticCorpus
     from repro_torch.models import Model
     from repro_torch.models.layers import embed_lookup, rmsnorm
-    from repro_torch.models.model import _ssm_layer
+    from repro_torch.models.mamba2 import ssm_layer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
             dt = F.softplus((u @ lp.in_dt).float() + lp.dt_bias)          # (b, S, H)
             decay = (dt * torch.exp(lp.A_log)).reshape(dt.shape[0], -1, Q, dt.shape[-1])
             sums.append((decay[:, :, 1:].sum(2)).max().item())
-            h = _ssm_layer(lp, h, cfg)
+            h = ssm_layer(lp, h, cfg)
     over = [i for i, s in enumerate(sums) if s > EXP_LIMIT]
     print(f"[decay] {cfg.name} bf16 seed {args.seed}, chunk {Q}: largest decay sum "
           f"above a chunk's diagonal, by layer: {[round(s, 2) for s in sums]}")

@@ -10,7 +10,8 @@ A tree is a tensor, a NamedTuple (``.field``), a tuple or list (``[i]``) or
 a dict (``['key']``, keys sorted as JAX sorts them). A dict keyed by the
 port's ``state_dict`` names is laid out as the JAX param tree
 (``convert.stack_layers``): ``layers.3.attn.q`` is row 3 of the leaf
-``['layers']['attn']['q']``.
+``['layers']['attn']['q']``, zamba2's ``mamba_layers.3.in_x`` row 3 of
+``['mamba_layers']['in_x']``.
 
 bf16 has no numpy dtype: it is written as the raw bytes of a ``uint16``
 view under the dtype name ``"bfloat16"`` (what ``ml_dtypes`` writes for

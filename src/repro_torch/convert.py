@@ -1,11 +1,13 @@
 """Weight bridge between the JAX package's param tree and the port's modules.
 
 The JAX tree (``repro.models.Model(cfg).init(key)[0]``) is a nested dict
-whose ``layers`` leaves are stacked on a leading ``(n_layers,)`` axis. The
-port keeps every per-layer shape of the reference, so conversion is a
-rename (``layers/attn/q`` -> ``layers.{i}.attn.q``; for the SSM family
-``layers/in_x`` -> ``layers.{i}.in_x``) plus a split of that axis
-(``jax_path``, ``stack_layers``). Both directions go through numpy; bf16
+whose ``layers`` leaves (zamba2: ``mamba_layers``) are stacked on a leading
+``(n_layers,)`` axis; zamba2's ``shared`` block is not stacked. The port
+keeps every per-layer shape of the reference, so conversion is a rename
+(``layers/attn/q`` -> ``layers.{i}.attn.q``; for the SSM family
+``layers/in_x`` -> ``layers.{i}.in_x``; for zamba2
+``mamba_layers/in_x`` -> ``mamba_layers.{i}.in_x``) plus a split of that
+axis (``jax_path``, ``stack_layers``). Both directions go through numpy; bf16
 travels as ``ml_dtypes``' ``bfloat16``, the dtype JAX hands to numpy.
 The AdamW state converts the same way: ``m`` and ``v`` are laid out like
 the params.
@@ -16,9 +18,11 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .models.model import SSM
-from .models.transformer import Transformer
+from .models.model import model_class
 from .optim import AdamWState
+
+#: the JAX tree's keys whose leaves are stacked on a leading layer axis
+STACKED = ("layers", "mamba_layers")
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -48,11 +52,12 @@ def _flatten(tree, prefix=""):
 def jax_path(name: str) -> tuple[tuple[str, ...], int | None]:
     """Where the port's ``state_dict`` entry ``name`` lives in the JAX tree:
     its key path and, for a layer's tensor, its index on the stacked axis.
-    ``layers.3.attn.q`` -> ``(('layers', 'attn', 'q'), 3)``; ``embed`` ->
-    ``(('embed',), None)``."""
+    ``layers.3.attn.q`` -> ``(('layers', 'attn', 'q'), 3)``;
+    ``mamba_layers.3.in_x`` -> ``(('mamba_layers', 'in_x'), 3)``;
+    ``shared.q`` -> ``(('shared', 'q'), None)``."""
     parts = name.split(".")
-    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
-        return ("layers", *parts[2:]), int(parts[1])
+    if parts[0] in STACKED and len(parts) > 2 and parts[1].isdigit():
+        return (parts[0], *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 
@@ -63,7 +68,8 @@ class LayerStack(list):
 
 def stack_layers(named: dict) -> dict:
     """``{JAX key path: entry}`` for a dict keyed by the port's names; the
-    entries of ``layers.{i}.rest`` are gathered into one ``LayerStack``."""
+    entries of ``layers.{i}.rest`` (``mamba_layers.{i}.rest``) are gathered
+    into one ``LayerStack``."""
     out: dict = {}
     layers: dict = {}
     for name, val in named.items():
@@ -83,22 +89,21 @@ def state_dict_from_jax(tree) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU tensors) for a JAX param tree."""
     sd = {}
     for name, leaf in _flatten(tree):
-        if name.startswith("layers."):
+        top, _, rest = name.partition(".")
+        if top in STACKED:
             stacked = _to_tensor(leaf)
-            rest = name[len("layers."):]
             for i in range(stacked.shape[0]):
-                sd[f"layers.{i}.{rest}"] = stacked[i].clone()
+                sd[f"{top}.{i}.{rest}"] = stacked[i].clone()
         else:
             sd[name] = _to_tensor(leaf)
     return sd
 
 
-def from_jax(cfg, tree, device=None) -> Transformer | SSM:
-    """The port's model for ``cfg.family`` (an :class:`SSM` for ``ssm``, a
-    :class:`Transformer` otherwise) on ``device`` (default: CUDA) holding
-    the JAX weights."""
-    cls = SSM if cfg.family == "ssm" else Transformer
-    model = cls(cfg, device=resolve_device(device))
+def from_jax(cfg, tree, device=None) -> torch.nn.Module:
+    """The port's model for ``cfg.family`` (an ``SSM`` for ``ssm``, a
+    ``Zamba2`` for ``hybrid``, a ``Transformer`` otherwise) on ``device``
+    (default: CUDA) holding the JAX weights."""
+    model = model_class(cfg)(cfg, device=resolve_device(device))
     model.load_state_dict(state_dict_from_jax(tree), strict=True)
     return model
 
@@ -115,7 +120,7 @@ def named_to_jax(named: dict) -> dict:
     return tree
 
 
-def to_jax(model: Transformer | SSM) -> dict:
+def to_jax(model: torch.nn.Module) -> dict:
     """The JAX param tree (numpy leaves, layers stacked) of a port model."""
     return named_to_jax(model.state_dict())
 

@@ -5,6 +5,7 @@ tasks overlapping the decode compute). Mirror of ``repro.launch.serve``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -38,10 +39,13 @@ def _dump_trace(path, record, prev=None):
 
 def serve(cfg, *, n_requests=8, prompt_len=32, max_new=16, batch=4,
           trace_path=None, seed=0, device=None, params=None):
-    """``params``: the model for ``cfg.family`` (a ``Transformer``, or an
-    ``SSM`` for mamba2), for example converted from JAX; by default the
-    port's own init from ``seed``. For the SSM family ``prompt_len`` must be
-    a multiple of ``cfg.ssm_chunk``, as in the reference."""
+    """``params``: the model for ``cfg.family`` (a ``Transformer``, an
+    ``SSM`` for mamba2, a ``Zamba2`` for zamba2), for example converted from
+    JAX; by default the port's own init from ``seed``. For the SSM and
+    hybrid families ``prompt_len`` must be a multiple of ``cfg.ssm_chunk``,
+    as in the reference: the prefill raises ``ValueError`` otherwise. The
+    hybrid family's prefill keeps the reference's quirk: its decode starts
+    from an empty state (``models.model.hybrid_prefill``)."""
     device = resolve_device(device)
     model = Model(cfg)
     if params is None:

@@ -77,8 +77,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           resume: bool = True, log_path: str | None = None,
           opt: AdamWConfig | None = None, seed: int = 0, device=None):
     """``device``: default the current CUDA device. Returns the reference's
-    keys; ``params`` is the model (a ``Transformer``, or an ``SSM`` for
-    mamba2), ``opt_state`` its AdamW state."""
+    keys; ``params`` is the model (a ``Transformer``, an ``SSM`` for mamba2,
+    a ``Zamba2`` for zamba2), ``opt_state`` its AdamW state. For the SSM and
+    hybrid families ``seq`` must be a multiple of ``cfg.ssm_chunk``."""
     device = resolve_device(device)
     model = Model(cfg)
     opt = opt or AdamWConfig(total_steps=max(steps, 2), warmup_steps=max(steps // 10, 1))

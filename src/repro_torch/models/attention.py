@@ -20,17 +20,20 @@ from .layers import _init, apply_rope
 
 
 class Attention(nn.Module):
-    """``q (D,H,hd)``, ``k``/``v`` ``(D,KV,hd)``, ``o (H,hd,D)``."""
+    """``q (D,H,hd)``, ``k``/``v`` ``(D,KV,hd)``, ``o (H,hd,D_out)``; the
+    output width ``d_out`` is the input width ``D`` unless given (zamba2's
+    shared block reads ``2·D`` and writes ``D``)."""
 
     def __init__(self, d_model, n_heads, n_kv, head_dim, dtype, device=None,
-                 generator=None):
+                 generator=None, d_out=None):
         super().__init__()
         s = 1.0 / math.sqrt(d_model)
         so = 1.0 / math.sqrt(n_heads * head_dim)
+        d_out = d_out or d_model
         self.q = nn.Parameter(_init((d_model, n_heads, head_dim), s, dtype, device, generator))
         self.k = nn.Parameter(_init((d_model, n_kv, head_dim), s, dtype, device, generator))
         self.v = nn.Parameter(_init((d_model, n_kv, head_dim), s, dtype, device, generator))
-        self.o = nn.Parameter(_init((n_heads, head_dim, d_model), so, dtype, device, generator))
+        self.o = nn.Parameter(_init((n_heads, head_dim, d_out), so, dtype, device, generator))
 
 
 def attn_init(generator, d_model, n_heads, n_kv, head_dim, dtype,
@@ -91,9 +94,10 @@ def _chunked_attn(q, k, v, positions, causal, window, chunk_q):
 def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
                    use_flash=False, flash_block=512, chunk_q_threshold=8192,
                    chunk_q=1024, return_kv=False):
-    """x: (B, S, D) -> (B, S, D); with ``return_kv`` also the roped K and
-    the V of this call, (B, S, KV, hd) each, for the prefill cache fill."""
-    B, S, D = x.shape
+    """x: (B, S, D) -> (B, S, D_out), ``D_out = p.o.shape[-1]``; with
+    ``return_kv`` also the roped K and the V of this call, (B, S, KV, hd)
+    each, for the prefill cache fill."""
+    B, S, _ = x.shape
     q = apply_rope(_project(x, p.q), positions, rope_theta)
     k = apply_rope(_project(x, p.k), positions, rope_theta)
     v = _project(x, p.v)
@@ -104,8 +108,8 @@ def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
         o = _chunked_attn(q, k, v, positions, causal, window, chunk_q)
     else:
         o = _dense_attn(q, k, v, positions, causal, window)
-    H, hd = p.o.shape[0], p.o.shape[1]
-    out = o.reshape(B, S, H * hd) @ p.o.reshape(H * hd, D)
+    H, hd, D_out = p.o.shape
+    out = o.reshape(B, S, H * hd) @ p.o.reshape(H * hd, D_out)
     return (out, (k, v)) if return_kv else out
 
 
@@ -131,15 +135,15 @@ def cache_capacity(seq_len: int, window: int) -> int:
 
 
 def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
-    """x: (B, D) one new token at position ``pos``. Returns (out (B, D),
-    cache). Rolling write when window is set.
+    """x: (B, D) one new token at position ``pos``. Returns (out (B, D_out),
+    cache), ``D_out = p.o.shape[-1]``. Rolling write when window is set.
 
     The cache is updated in place (the reference returns a new one): this
     saves a copy of the whole cache per layer and step. With no window and
     ``pos >= C`` the reference's ``dynamic_update_slice`` clamps the K/V
     write to slot ``C-1`` while its ``slot_pos`` scatter drops the write;
     both are kept here."""
-    B, D = x.shape
+    B = x.shape[0]
     H, hd = p.q.shape[1], p.q.shape[2]
     KV = p.k.shape[1]
     C = cache.k.shape[1]
@@ -162,4 +166,4 @@ def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
     scores = torch.where(valid[None, None, None, :], scores.float(), -1e9)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     o = torch.einsum("bkgc,bckh->bkgh", w, cache.v).reshape(B, H * hd)
-    return o @ p.o.reshape(H * hd, D), cache
+    return o @ p.o.reshape(H * hd, p.o.shape[-1]), cache

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _init, rmsnorm
+from .layers import _init, rmsnorm, rmsnorm_init
 
 
 class Mamba2(nn.Module):
@@ -56,6 +56,17 @@ class Mamba2(nn.Module):
         self.dt_bias = const((H,), -2.0, torch.float32)
         self.norm_w = const((d_inner,), 1.0, torch.float32)
         self.out_proj = drawn((d_inner, d_model), 1.0 / math.sqrt(d_inner))
+
+
+class SSMLayer(Mamba2):
+    """A Mamba2 mixer plus its pre-norm ``ln``: one layer of the SSM family
+    and of zamba2's backbone, the reference's layer dict."""
+
+    def __init__(self, cfg, device=None, generator=None):
+        super().__init__(cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                         ssm_state=cfg.ssm_state, dtype=cfg.dtype, device=device,
+                         generator=generator)
+        self.ln = rmsnorm_init(cfg.d_model, device)
 
 
 def mamba2_init(generator, d_model, *, expand=2, headdim=64, ssm_state=128,
@@ -162,6 +173,14 @@ def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
     y = y.reshape(Bsz, S, d_inner)
     y = rmsnorm(y, p.norm_w) * F.silu(z)
     return y @ p.out_proj, h_last
+
+
+def ssm_layer(lp, h, cfg):
+    """One :class:`SSMLayer` with its residual: ``h + mixer(rmsnorm(h))``
+    (the body of the reference's layer scan)."""
+    out, _ = mamba2_forward(lp, rmsnorm(h, lp.ln, cfg.norm_eps), chunk=cfg.ssm_chunk,
+                            use_kernel=cfg.use_ssd_kernel)
+    return h + out
 
 
 def mamba2_decode(p, u, cache: MambaCache):

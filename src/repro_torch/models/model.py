@@ -1,7 +1,6 @@
 """Uniform model facade: init / loss / prefill / decode_step. Mirror of
-``repro.models.model`` for the dense transformer families and the pure-SSM
-family (mamba2); the hybrid (zamba2) family is not ported yet (ROADMAP
-Queue 1, item 10).
+``repro.models.model`` for the dense transformer families, the pure-SSM
+family (mamba2) and the hybrid family (zamba2).
 """
 from __future__ import annotations
 
@@ -14,24 +13,16 @@ from torch import nn
 from ..device import resolve_device
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
-from .mamba2 import Mamba2, MambaCache, mamba2_decode, mamba2_forward
+from .mamba2 import MambaCache, SSMLayer, mamba2_decode, mamba2_forward, ssm_layer
 from .transformer import (Transformer, transformer_decode_step,
                           transformer_init, transformer_loss, transformer_prefill)
+from .zamba2 import (HybridState, Zamba2, zamba2_decode_step, zamba2_forward,
+                     zamba2_init, zamba2_init_state)
 
 
 # --------------------------------------------------------------------------
 # Pure-SSM LM (mamba2-2.7b)
 # --------------------------------------------------------------------------
-class SSMLayer(Mamba2):
-    """A Mamba2 mixer plus its pre-norm ``ln``, the reference's layer dict."""
-
-    def __init__(self, cfg, device=None, generator=None):
-        super().__init__(cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
-                         ssm_state=cfg.ssm_state, dtype=cfg.dtype, device=device,
-                         generator=generator)
-        self.ln = rmsnorm_init(cfg.d_model, device)
-
-
 class SSM(nn.Module):
     """``embed (Vpad, D)``, ``layers``, ``final_norm (D,)`` and, unless the
     embeddings are tied, ``head (D, Vpad)``. ``generator=None`` leaves the
@@ -60,16 +51,10 @@ def _lm_logits(params, cfg, h):
     return h @ params.head
 
 
-def _ssm_layer(lp, h, cfg):
-    out, _ = mamba2_forward(lp, rmsnorm(h, lp.ln, cfg.norm_eps), chunk=cfg.ssm_chunk,
-                            use_kernel=cfg.use_ssd_kernel)
-    return h + out
-
-
 def _ssm_backbone(params, cfg, h):
     """Every layer in turn; with ``cfg.remat`` each one is checkpointed."""
     for lp in params.layers:
-        h = remat(cfg.remat, _ssm_layer, lp, h, cfg)
+        h = remat(cfg.remat, ssm_layer, lp, h, cfg)
     return h
 
 
@@ -122,44 +107,90 @@ def ssm_decode_step(params, cfg, state: SSMState, tokens):
 
 
 # --------------------------------------------------------------------------
+# Hybrid (zamba2)
+# --------------------------------------------------------------------------
+def _positions(tokens):
+    B, S = tokens.shape
+    return torch.arange(S, device=tokens.device).expand(B, S)
+
+
+def hybrid_loss(params, cfg, batch):
+    tokens = batch["tokens"]
+    h = zamba2_forward(params, cfg, embed_lookup(params.embed, tokens), _positions(tokens))
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
+
+
+def hybrid_prefill(params, cfg, batch, cache_len):
+    """Run the prompt. Returns (last logits, HybridState). The prompt length
+    must be a multiple of ``cfg.ssm_chunk``.
+
+    The reference's quirk, kept so that prefill-then-decode matches it: the
+    state returned is a fresh, empty one with ``pos = 0``
+    (``zamba2_init_state``), so the decode steps after it do not see the
+    prompt."""
+    tokens = batch["tokens"]
+    h = zamba2_forward(params, cfg, embed_lookup(params.embed, tokens), _positions(tokens))
+    h = rmsnorm(h[:, -1], params.final_norm, cfg.norm_eps)
+    state = zamba2_init_state(cfg, tokens.shape[0], cache_len, cfg.dtype, tokens.device)
+    return _lm_logits(params, cfg, h), state
+
+
+def hybrid_decode_step(params, cfg, state: HybridState, tokens):
+    """tokens: (B,) int. One decode step. Returns (logits, new state); the
+    caches are updated in place."""
+    h, state = zamba2_decode_step(params, cfg, state, embed_lookup(params.embed, tokens))
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    return _lm_logits(params, cfg, h), state
+
+
+# --------------------------------------------------------------------------
 # Facade
 # --------------------------------------------------------------------------
+def model_class(cfg) -> type[nn.Module]:
+    """The module class that holds ``cfg.family``'s parameters."""
+    return {"ssm": SSM, "hybrid": Zamba2}.get(cfg.family, Transformer)
+
+
 class Model:
     def __init__(self, cfg):
         self.cfg = cfg
 
-    def _check_ported(self):
-        if self.cfg.family == "hybrid":
-            raise NotImplementedError("family 'hybrid' is not ported yet "
-                                      "(ROADMAP Queue 1, item 10)")
-
-    def init(self, seed: int = 0, device=None) -> Transformer | SSM:
+    def init(self, seed: int = 0, device=None) -> Transformer | SSM | Zamba2:
         """Weights drawn from ``torch.Generator(device).manual_seed(seed)``
         (not the JAX init's numbers: ``repro_torch.convert`` brings those)."""
-        self._check_ported()
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return ssm_init(gen, self.cfg, device)
+        if f == "hybrid":
+            return zamba2_init(gen, self.cfg, device)
         return transformer_init(gen, self.cfg, device)
 
     def loss(self, params, batch):
         """The training loss, differentiable in ``params``' tensors."""
-        self._check_ported()
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return ssm_loss(params, self.cfg, batch)
+        if f == "hybrid":
+            return hybrid_loss(params, self.cfg, batch)
         return transformer_loss(params, self.cfg, batch)
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len):
-        self._check_ported()
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return ssm_prefill(params, self.cfg, batch, cache_len)
+        if f == "hybrid":
+            return hybrid_prefill(params, self.cfg, batch, cache_len)
         return transformer_prefill(params, self.cfg, batch, cache_len)
 
     @torch.no_grad()
     def decode_step(self, params, state, tokens):
-        self._check_ported()
-        if self.cfg.family == "ssm":
+        f = self.cfg.family
+        if f == "ssm":
             return ssm_decode_step(params, self.cfg, state, tokens)
+        if f == "hybrid":
+            return hybrid_decode_step(params, self.cfg, state, tokens)
         return transformer_decode_step(params, self.cfg, state, tokens)

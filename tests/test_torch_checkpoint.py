@@ -125,11 +125,21 @@ def test_restore_rejects_a_shape_mismatch(tmp_path):
 
 
 # ---------------------------------------------------------------- the format
-@pytest.fixture(scope="module")
-def train_state():
-    """(params, AdamWState) of the tinyllama smoke config in bf16 after one
+# arch: a key of its (params, AdamWState) tree, as jax.tree_util.keystr
+# gives it, and the tree's number of leaves
+TREES = {
+    "tinyllama-1.1b": ("[0]['layers']['attn']['q']", 37),
+    "mamba2-2.7b": ("[0]['layers']['in_x']", 49),                 # SSM
+    "smollm-360m": ("[0]['layers']['attn']['q']", 34),            # tied embeddings
+    "zamba2-1.2b": ("[0]['mamba_layers']['in_x']", 79),           # hybrid
+}
+
+
+@pytest.fixture(scope="module", params=list(TREES))
+def train_state(request):
+    """(params, AdamWState) of an arch's smoke config in bf16 after one
     AdamW step (m and v non-zero), in the JAX package."""
-    jcfg = jax_smoke_config("tinyllama-1.1b")          # dtype bf16
+    jcfg = jax_smoke_config(request.param)             # dtype bf16
     params = JaxModel(jcfg).init(jax.random.PRNGKey(0))[0]
     grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.01, p.dtype), params)
     state = jadamw.adamw_init(params)
@@ -149,7 +159,9 @@ def test_keys_and_order_are_jax_keystr(train_state):
              for p, _ in jax.tree_util.tree_flatten_with_path((params, state))[0]]
     tkeys = [k for k, _ in flatten_with_paths(port_tree(jcfg, params, state))]
     assert tkeys == jkeys
-    assert "[0]['layers']['attn']['q']" in tkeys and "[1].count" in tkeys
+    key, n_leaves = TREES[jcfg.name]
+    assert key in tkeys and "[1].count" in tkeys
+    assert len(tkeys) == n_leaves
 
 
 def test_same_tree_same_files(train_state, tmp_path):

@@ -231,10 +231,13 @@ def torch_batch(b):
 
 
 @pytest.mark.parametrize("arch,flag", [("tinyllama-1.1b", "use_flash"),
-                                       ("mamba2-2.7b", "use_ssd_kernel")])
+                                       ("mamba2-2.7b", "use_ssd_kernel"),
+                                       ("zamba2-1.2b", "use_ssd_kernel"),
+                                       ("zamba2-1.2b", "use_flash")])
 def test_model_level_kernel_equivalence(arch, flag):
-    """The tinyllama and mamba2 rows of tests/test_kernels.py's test: the
-    loss with the kernel flag on and off agree within 1e-3, and so do the
+    """The rows of tests/test_kernels.py's test (tinyllama, mamba2, and
+    zamba2 with the SSD kernel), and zamba2 with the flash kernel: the loss
+    with the kernel flag on and off agree within 1e-3, and so do the
     gradients (within 1e-4 of each leaf's largest |g|)."""
     cfg0 = get_smoke_config(arch).replace(dtype=torch.float32)
     params = Model(cfg0).init(1, device="cpu")
@@ -282,6 +285,10 @@ LOSS_CONFIGS = {
     "tinyllama-smoke": ("smoke", "tinyllama-1.1b"),
     "preset-5m": ("preset", "5m"),
     "mamba2-smoke": ("smoke", "mamba2-2.7b"),
+    "smollm-smoke": ("smoke", "smollm-360m"),          # tied embeddings
+    "granite-20b-smoke": ("smoke", "granite-20b"),     # MQA
+    "granite-34b-smoke": ("smoke", "granite-34b"),
+    "zamba2-smoke": ("smoke", "zamba2-1.2b"),          # hybrid: shared block at 3 sites
 }
 
 
@@ -319,9 +326,10 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize("name", list(LOSS_CONFIGS))
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_jax(name, remat, jx):
-    """transformer_loss (tinyllama smoke, PRESETS['5m']) and ssm_loss
-    (mamba2 smoke) and their gradients, with remat on and off, from the JAX
-    package's init."""
+    """transformer_loss (tinyllama, smollm, granite-20b and granite-34b
+    smoke, PRESETS['5m']), ssm_loss (mamba2 smoke) and hybrid_loss (zamba2
+    smoke, the shared block's gradients summed over its sites) and their
+    gradients, with remat on and off, from the JAX package's init."""
     from repro_torch.convert import from_jax
     jcfg, tcfg = configs(jx, name, remat=remat)
     jp = jx.Model(jcfg).init(jx.jax.random.PRNGKey(0))[0]
@@ -345,20 +353,15 @@ def test_unported_modes_raise(mode):
         Model(bad).loss(params, torch_batch(batch_of(cfg.vocab_size, 1, 8, 0)))
 
 
-def test_hybrid_loss_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Model(get_smoke_config("zamba2-1.2b")).loss(None, {})
-
-
 # ------------------------------------------------------------- train step
-@pytest.mark.parametrize("name", ["preset-5m", "tinyllama-smoke"])
+@pytest.mark.parametrize("name", ["preset-5m", "tinyllama-smoke", "zamba2-smoke"])
 def test_three_train_steps_match_jax(name, jx):
     """Three steps of the port's train_step against the reference train loop's
     (value_and_grad of the loss, then adamw_update) from converted weights
     on the same SyntheticCorpus batches: the per-step losses within 1e-4."""
     from repro.data import SyntheticCorpus
     from repro_torch.convert import from_jax
-    jcfg, tcfg = configs(jx, name, remat=name == "tinyllama-smoke")
+    jcfg, tcfg = configs(jx, name, remat=name != "preset-5m")
     kw = dict(lr=1e-3, total_steps=3, warmup_steps=1)
     jopt, topt = jx.adamw.AdamWConfig(**kw), AdamWConfig(**kw)
     jp = jx.Model(jcfg).init(jx.jax.random.PRNGKey(0))[0]
