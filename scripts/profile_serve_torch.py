@@ -1,10 +1,11 @@
 """Where the time of the port's serving path goes, on one GPU.
 
-  python3 scripts/profile_serve_torch.py [--arch tinyllama-1.1b|mamba2-2.7b|zamba2-1.2b]
-      [--max-new 16] [--out build/profile_serve_<arch>.txt]
+  python3 scripts/profile_serve_torch.py [--arch tinyllama-1.1b|mamba2-2.7b|zamba2-1.2b|
+      qwen2-moe-a2.7b] [--max-new 16] [--out build/profile_serve_<arch>.txt]
 
-Serves a full-width model in bf16 through its kernels (tinyllama-1.1b:
-flash attention; mamba2-2.7b: the SSD scan; zamba2-1.2b: both) via
+Serves a full-width model in bf16 through its kernels (tinyllama-1.1b and
+qwen2-moe-a2.7b: flash attention; mamba2-2.7b: the SSD scan; zamba2-1.2b:
+both) via
 ``repro_torch.launch.serve``
 once to warm up, then profiles under ``torch.profiler``:
   1. one prefill wave alone: wall, device-busy time, each kernel's device
@@ -14,6 +15,10 @@ once to warm up, then profiles under ``torch.profiler``:
   3. one whole ``serve`` run: wall, device-busy share of it (the union of
      kernel intervals over the profiled window), the kernel's share, and
      the top kernels by device time. The full table goes to ``--out``.
+For an MoE model the prefill and decode lines also split the device time
+between the expert products (``aten::bmm``; in decode it also holds the
+attention's two einsums over the cache) and the dispatch's routing and
+gather/scatter ops (``DISPATCH_OPS``).
 """
 from __future__ import annotations
 
@@ -32,8 +37,15 @@ ROOT = Path(__file__).resolve().parents[1]
 # ssd_fwd_kernel)
 KERNEL = {"tinyllama-1.1b": (("use_flash",), ("flash_fwd",)),
           "mamba2-2.7b": (("use_ssd_kernel",), ("ssd_",)),
-          "zamba2-1.2b": (("use_flash", "use_ssd_kernel"), ("flash_fwd", "ssd_"))}
+          "zamba2-1.2b": (("use_flash", "use_ssd_kernel"), ("flash_fwd", "ssd_")),
+          "qwen2-moe-a2.7b": (("use_flash",), ("flash_fwd",))}
 MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm")
+# the ops of models/moe.py's dispatch besides its products: routing (softmax,
+# top-k, sorts, counts) and the moves into and out of the expert slots
+DISPATCH_OPS = ("aten::_softmax", "aten::topk", "aten::sort", "aten::argsort",
+                "aten::index_add_", "aten::cumsum", "aten::index", "aten::index_copy",
+                "aten::index_copy_", "aten::scatter_", "aten::cat", "aten::where",
+                "aten::sum", "aten::div", "aten::mean")
 
 
 def busy_ms(intervals):
@@ -59,6 +71,16 @@ def kernel_ms(kernels, knames):
         ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         parts.append((kname, ms, len(kern)))
     return parts
+
+
+def moe_split(prof, cfg):
+    """``; expert products x ms, dispatch ops y ms`` for an MoE model (self
+    device time by op name), else ``""``."""
+    if not cfg.n_experts:
+        return ""
+    by = {a.key: a.self_device_time_total / 1e3 for a in prof.key_averages()}
+    disp = sum(by.get(k, 0.0) for k in DISPATCH_OPS)
+    return f"; bmm {by.get('aten::bmm', 0.0):.2f} ms, dispatch ops {disp:.2f} ms"
 
 
 def profiled(torch, fn):
@@ -133,7 +155,7 @@ def main(argv=None) -> int:
           + "; ".join(f"{k} {ms:.2f} ms over {n} launches ({100 * ms / busy:.1f}% of "
                       f"device busy)" for k, ms, n in kern)
           + f"; matrix products {mm_ms:.2f} ms; other {busy - kern_ms - mm_ms:.2f} ms; "
-          f"{len(kernels)} kernel launches")
+          f"{len(kernels)} kernel launches" + moe_split(prof, cfg))
     wall, kernels, prof = profiled(torch, decode)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     mm_ms = sum(a.self_device_time_total for a in prof.key_averages()
@@ -142,7 +164,8 @@ def main(argv=None) -> int:
           f"{wall / args.max_new:.2f} ms a step, {len(kernels) / args.max_new:.0f} kernel "
           f"launches a step, device busy {busy / args.max_new:.2f} ms a step = "
           f"{100 * busy / wall:.1f}% of wall; matrix products "
-          f"{mm_ms / args.max_new:.2f} ms a step")
+          f"{mm_ms / args.max_new:.2f} ms a step" + moe_split(prof, cfg)
+          + (" (all steps)" if cfg.n_experts else ""))
     del params
     box.clear()
     torch.cuda.empty_cache()

@@ -5,7 +5,7 @@
 //     stores, and the host side that encodes their tensor maps;
 //   - the wgmma shared-memory matrix descriptor (32B, 64B, 128B swizzle);
 //   - wgmma fence / commit_group / wait_group;
-//   - wgmma.mma_async m64nNk16 (N = 32, 64, 128), bf16 or f16 inputs, fp32
+//   - wgmma.mma_async m64nNk16 (N = 32, 64, 80, 128), bf16 or f16 inputs, fp32
 //     accumulator, A from shared memory (ss) or from registers (rs);
 //   - wgmma.mma_async m64nNk8 (N = 32, 64, 128), tf32 inputs (raw fp32 in
 //     shared memory or registers), fp32 accumulator, ss or rs;
@@ -234,6 +234,23 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
   "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define HOPPER_D40 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, " \
+  "%8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39"
+#define HOPPER_OUT40(d) \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
 #define HOPPER_D64 \
   "%0, %1, %2, %3, %4, %5, %6, %7, " \
   "%8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -306,6 +323,8 @@ HOPPER_MMA(32, 16, "18", "%16, %17, p, 1, 1, %19, %20",
            "21", "{%16, %17, %18, %19}, %20, p, 1, 1, %22")
 HOPPER_MMA(64, 32, "34", "%32, %33, p, 1, 1, %35, %36",
            "37", "{%32, %33, %34, %35}, %36, p, 1, 1, %38")
+HOPPER_MMA(80, 40, "42", "%40, %41, p, 1, 1, %43, %44",
+           "45", "{%40, %41, %42, %43}, %44, p, 1, 1, %46")
 HOPPER_MMA(128, 64, "66", "%64, %65, p, 1, 1, %67, %68",
            "69", "{%64, %65, %66, %67}, %68, p, 1, 1, %70")
 

@@ -165,6 +165,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
   switch (hd) {
     case 32: return launch<32, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 64: return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    // 80 + 64 floats of accumulator and scores, under HD = 128's 160
+    case 80: return launch<80, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 128: return launch<128, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -173,7 +175,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous fp32.
-// hd in {32, 64, 128}.
+// hd in {32, 64, 80, 128}.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, int hd, int causal,
                          int window, void* stream) {

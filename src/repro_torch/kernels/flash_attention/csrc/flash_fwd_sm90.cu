@@ -41,8 +41,11 @@
 //   - the epilogue divides by the row sum (by 1 where it is 0), stages the
 //     tile in shared memory and writes it with coalesced 16-byte stores,
 //     rows past S left out.
-// Head dims 32 (64-byte swizzle), 64 (128-byte) and 128 (two 128-byte
-// swizzle atoms side by side).
+// Head dims 32 (64-byte swizzle), 64 (128-byte), 128 (two 128-byte
+// swizzle atoms side by side) and 80 (hubert-xlarge: five 16-column atoms
+// with the 32-byte swizzle, so that no column is padded or copied; each
+// k-step of Q.K^T is one whole atom, and P.V is one m64n80k16 wgmma a step
+// whose B operand steps over the five atoms by its leading byte offset).
 //
 // Entry point: flash_fwd_sm90(...) with a plain C interface (loaded with
 // ctypes), launching on the given stream and returning cudaGetLastError().
@@ -66,8 +69,12 @@ using ValidMask = std::conditional_t<(BK / 2 > 32), uint64_t, uint32_t>;
 
 template <int HD>
 struct Layout {
-  static constexpr int ATOM = HD < 64 ? HD : 64;  // columns per swizzle atom
+  // columns per swizzle atom: 64 where they divide HD, else the whole row
+  // (HD = 32), else 16 (HD = 80, whose 160-byte rows no 64- or 128-byte
+  // atom covers)
+  static constexpr int ATOM = HD % 64 == 0 ? 64 : HD == 32 ? 32 : 16;
   static constexpr int NATOM = HD / ATOM;
+  static_assert(HD % ATOM == 0 && HD % 16 == 0, "head dim");
   static constexpr int ROWB = ATOM * 2;           // bytes per row of an atom
   static constexpr int GROUPB = 8 * ROWB;         // one 8-row swizzle group
   static constexpr Swizzle SWZ = swizzle_for_row_bytes(ROWB);
@@ -137,7 +144,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BK / 2], float (&m)[2],
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : 2)
+__global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : HD <= 80 ? 3 : 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S,
@@ -321,6 +328,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, causal, window, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -330,7 +338,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous, 16-byte
 // aligned, of one dtype: bf16 (is_f16 = 0) or fp16 (is_f16 = 1).
-// hd in {32, 64, 128}.
+// hd in {32, 64, 80, 128}.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
                               int S, int H, int KV, int hd, int causal, int window,
                               int is_f16, void* stream) {

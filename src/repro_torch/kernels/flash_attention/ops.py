@@ -30,7 +30,7 @@ from ..build import load
 from .ref import attention_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 #: dtype -> (source, C entry point, trailing int arguments before the stream)
 ROUTES = {
     torch.bfloat16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (0,)),

@@ -6,6 +6,7 @@ tasks overlapping the decode compute). Mirror of ``repro.launch.serve``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --full --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --full --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full --prompt-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
 from __future__ import annotations
@@ -39,7 +40,9 @@ def _dump_trace(path, record, prev=None):
 
 def serve(cfg, *, n_requests=8, prompt_len=32, max_new=16, batch=4,
           trace_path=None, seed=0, device=None, params=None):
-    """``params``: the model for ``cfg.family`` (a ``Transformer``, an
+    """Feeds token prompts, as the reference's ``serve`` does: the encoder
+    (hubert) and VLM (llava) families run through ``Model`` instead.
+    ``params``: the model for ``cfg.family`` (a ``Transformer``, an
     ``SSM`` for mamba2, a ``Zamba2`` for zamba2), for example converted from
     JAX; by default the port's own init from ``seed``. For the SSM and
     hybrid families ``prompt_len`` must be a multiple of ``cfg.ssm_chunk``,

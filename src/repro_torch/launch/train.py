@@ -60,7 +60,7 @@ def train_step(model: Model, params, opt_state, batch: dict, opt: AdamWConfig):
     here: the loss, its gradients by backward, AdamW on ``.grad``. Updates
     ``params`` (the model) and ``opt_state``'s moments in place; returns
     (new opt_state, loss, gnorm) as 0-d device tensors."""
-    device = params.embed.device
+    device = next(params.parameters()).device
     b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     loss = model.loss(params, b)
     loss.backward()

@@ -1,6 +1,6 @@
-"""Uniform model facade: init / loss / prefill / decode_step. Mirror of
-``repro.models.model`` for the dense transformer families, the pure-SSM
-family (mamba2) and the hybrid family (zamba2).
+"""Uniform model facade: init / loss / prefill / decode_step / encode.
+Mirror of ``repro.models.model`` for the transformer families (dense, MoE,
+encoder, VLM), the pure-SSM family (mamba2) and the hybrid family (zamba2).
 """
 from __future__ import annotations
 
@@ -14,8 +14,9 @@ from ..device import resolve_device
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
 from .mamba2 import MambaCache, SSMLayer, mamba2_decode, mamba2_forward, ssm_layer
-from .transformer import (Transformer, transformer_decode_step,
-                          transformer_init, transformer_loss, transformer_prefill)
+from .transformer import (Transformer, _embed_inputs, _logits, _scan_layers,
+                          transformer_decode_step, transformer_init, transformer_loss,
+                          transformer_prefill)
 from .zamba2 import (HybridState, Zamba2, zamba2_decode_step, zamba2_forward,
                      zamba2_init, zamba2_init_state)
 
@@ -194,3 +195,14 @@ class Model:
         if f == "hybrid":
             return hybrid_decode_step(params, self.cfg, state, tokens)
         return transformer_decode_step(params, self.cfg, state, tokens)
+
+    @torch.no_grad()
+    def encode(self, params, batch):
+        """Encoder-only forward: logits over the whole sequence (hubert)."""
+        cfg = self.cfg
+        h = _embed_inputs(params, cfg, batch)
+        B, S, _ = h.shape
+        positions = torch.arange(S, device=h.device).expand(B, S)
+        h, _ = _scan_layers(params, cfg, h, positions)
+        h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+        return _logits(params, cfg, h)

@@ -132,6 +132,9 @@ TREES = {
     "mamba2-2.7b": ("[0]['layers']['in_x']", 49),                 # SSM
     "smollm-360m": ("[0]['layers']['attn']['q']", 34),            # tied embeddings
     "zamba2-1.2b": ("[0]['mamba_layers']['in_x']", 79),           # hybrid
+    "qwen2-moe-a2.7b": ("[0]['layers']['moe']['shared']['gate']", 49),  # MoE + shared
+    "mixtral-8x22b": ("[0]['layers']['moe']['router']", 40),       # MoE
+    "hubert-xlarge": ("[0]['head']", 34),                          # encoder: no embed
 }
 
 

@@ -44,6 +44,17 @@ BOUNDARY_CASES = [
     (1, 300, 8, 1, 64, True, 100, 128, 128),
     (1, 129, 8, 1, 64, False, 0, 64, 64),
 ]
+# head dim 80 (hubert-xlarge's): the kernels' five 16-column atoms, causal and
+# bidirectional; then, held against the JAX package's plain version as the
+# ragged cases are, a ragged tail under a window and a 129-row boundary
+HD80_CASES = [
+    (1, 128, 4, 4, 80, True, 0, 64, 64),
+    (2, 192, 4, 2, 80, False, 0, 64, 64),
+]
+HD80_RAGGED_CASES = [
+    (1, 100, 4, 2, 80, True, 16, 64, 64),
+    (1, 129, 8, 1, 80, True, 0, 64, 64),
+]
 # f32: summation orders differ. bf16: P and the output are rounded to the
 # input type. fp16 has 3 more mantissa bits than bf16, so bf16's tolerance
 # covers it against the JAX package on the CPU.
@@ -81,7 +92,7 @@ def f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + HD80_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_matches_jax(case, dtype, tol, jx):
     B, S, H, KV, hd, causal, win, bq, bk = case
@@ -95,7 +106,7 @@ def test_flash_matches_jax(case, dtype, tol, jx):
     np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("case", RAGGED_CASES + BOUNDARY_CASES)
+@pytest.mark.parametrize("case", RAGGED_CASES + BOUNDARY_CASES + HD80_RAGGED_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_ragged_matches_jax_ref(case, dtype, tol, jx):
     B, S, H, KV, hd, causal, win, bq, bk = case
@@ -127,7 +138,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + BOUNDARY_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + BOUNDARY_CASES + HD80_CASES
+                         + HD80_RAGGED_CASES)
 @pytest.mark.parametrize("dtype,tol", CUDA_DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     if not torch.cuda.is_available():

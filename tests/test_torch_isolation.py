@@ -40,7 +40,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert "repro_torch.kernels.flash_attention.ops" in out["imported"]
     assert "repro_torch.kernels.ssd_scan.ops" in out["imported"]
     for mod in ("launch.train", "optim.adamw", "checkpoint.manager", "checkpoint.serializer",
-                "data.pipeline", "convert", "models.zamba2", "lint", "trace", "compare"):
+                "data.pipeline", "convert", "models.zamba2", "models.moe", "lint", "trace",
+                "compare"):
         assert f"repro_torch.{mod}" in out["imported"]
     assert out["bad"] == []
 
@@ -126,7 +127,8 @@ def test_train_without_device_needs_cuda(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())      # nothing written before the check
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-2.7b", "zamba2-1.2b",
+                                  "qwen2-moe-a2.7b", "hubert-xlarge", "llava-next-mistral-7b"])
 def test_model_init_without_device_needs_cuda(monkeypatch, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model

@@ -40,10 +40,14 @@ def jax_params(jcfg):
 
 @pytest.mark.parametrize("arch,use_flash,window",
                          [(ARCH, f, w) for f, w in CASES]
-                         + [("smollm-360m", False, 0), ("granite-20b", False, 0)])
+                         + [("smollm-360m", False, 0), ("granite-20b", False, 0)]
+                         + [("qwen2-moe-a2.7b", f, 0) for f in (False, True)]
+                         + [("mixtral-8x22b", f, 16) for f in (False, True)])
 def test_prefill_and_decode_match_jax(arch, use_flash, window):
     """tinyllama in every route; smollm (tied embeddings, hd 20) and granite
-    (MQA) on the dense route."""
+    (MQA) on the dense route; the MoE families (qwen2-moe: top-4 of 8 and
+    shared experts; mixtral: top-2 of 4 under its window of 16) in both
+    routes, decode dispatching the B new tokens together."""
     jcfg, tcfg = configs(use_flash, window, arch)
     jp = jax_params(jcfg)
     tp = from_jax(tcfg, jp, device="cpu")
@@ -89,6 +93,20 @@ def test_serve_completions_match_jax(use_flash, tmp_path):
     assert out["p50_s"] > 0 and out["p99_s"] >= out["p50_s"]
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x22b"])
+def test_moe_serve_completions_match_jax(arch):
+    """Greedy prefill + decode through ``serve``: the MoE families' tokens
+    equal the JAX package's, token for token."""
+    window = get_smoke_config(arch).sliding_window
+    jcfg, tcfg = configs(False, window, arch)
+    kw = dict(n_requests=4, prompt_len=8, max_new=4, batch=2, seed=SEED)
+    ref = jax_serve(jcfg, **kw)
+    out = serve(tcfg, device="cpu", params=from_jax(tcfg, jax_params(jcfg), device="cpu"), **kw)
+    assert out["new_tokens"] == ref["new_tokens"] == 16
+    assert [c["tokens"] for c in out["completions"]] == \
+        [c["tokens"] for c in ref["completions"]]
+
+
 def test_serve_default_init_runs_on_cpu():
     _, tcfg = configs()
     out = serve(tcfg, n_requests=3, prompt_len=8, max_new=3, batch=2,
@@ -123,6 +141,10 @@ def test_convert_round_trip(dtype):
 
 
 def test_tied_embeddings_and_unported_families_raise():
+    """Tied embeddings leave no ``head``. The three families that raised
+    before the MoE, encoder and VLM modes were ported now build, each with
+    its own parts: MoE blocks in place of the MLP, no ``embed`` for the
+    encoder fed frame embeddings, an ``embed`` for the VLM's text."""
     from repro_torch.configs import get_smoke_config as cfg_of
     cfg = cfg_of("smollm-360m").replace(dtype=torch.float32)
     m = Model(cfg)
@@ -130,6 +152,10 @@ def test_tied_embeddings_and_unported_families_raise():
     assert not hasattr(p, "head")
     logits, _ = m.prefill(p, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, 6)
     assert logits.shape == (1, 256) and torch.isfinite(logits).all()
-    for arch in ("mixtral-8x22b", "hubert-xlarge", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg_of(arch)).init(0, device="cpu")
+    built = {arch: Model(cfg_of(arch)).init(0, device="cpu")
+             for arch in ("mixtral-8x22b", "hubert-xlarge", "llava-next-mistral-7b")}
+    mix = built["mixtral-8x22b"].layers[0]
+    assert not hasattr(mix, "mlp") and mix.moe.gate.shape == (4, 64, 128)
+    assert mix.moe.router.dtype == torch.float32 and not hasattr(mix.moe, "shared")
+    assert not hasattr(built["hubert-xlarge"], "embed")
+    assert built["llava-next-mistral-7b"].embed.shape == (256, 64)

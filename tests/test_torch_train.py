@@ -57,31 +57,42 @@ def jx():
 
 
 # ------------------------------------------------------------ kernel grads
-def flash_inputs(seed=4):
+def flash_inputs(seed=4, hd=32):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32)
-            for s in ((1, 128, 4, 32), (1, 128, 2, 32), (1, 128, 2, 32))]
+            for s in ((1, 128, 4, hd), (1, 128, 2, hd), (1, 128, 2, hd))]
 
 
-def test_flash_grads_match_ref_and_jax(jx):
-    """tests/test_kernels.py::test_flash_grads_match_ref on the port: the
-    gradients of sum(out) through the wrapper's backward against autograd
-    of the plain version and against the JAX wrapper's custom_vjp."""
-    arrs = flash_inputs()
+def check_flash_grads(jx, arrs, causal):
+    """The gradients of sum(out) through the wrapper's backward against
+    autograd of the plain version and against the JAX wrapper's custom_vjp
+    (its Pallas forward in interpret mode) and its plain version."""
     qkv = [torch.from_numpy(a).requires_grad_() for a in arrs]
-    out = flash_ops.flash_attention(*qkv, True, 0, 64, 64)
+    out = flash_ops.flash_attention(*qkv, causal, 0, 64, 64)
     assert type(out.grad_fn) is flash_ops.FlashAttention._backward_cls
     got = torch.autograd.grad(out.sum(), qkv)
     ref_in = [torch.from_numpy(a).requires_grad_() for a in arrs]
-    want = torch.autograd.grad(attention_ref(*ref_in, causal=True).sum(), ref_in)
+    want = torch.autograd.grad(attention_ref(*ref_in, causal=causal).sum(), ref_in)
     jin = [jx.jnp.asarray(a) for a in arrs]
     for argnum in range(3):
-        g_jax = jx.jax.grad(lambda *a: jx.flash(*a, True, 0, 64, 64).sum(),
+        g_jax = jx.jax.grad(lambda *a: jx.flash(*a, causal, 0, 64, 64).sum(),
                             argnums=argnum)(*jin)
-        g_jref = jx.jax.grad(lambda *a: jx.attention_ref(*a, causal=True).sum(),
+        g_jref = jx.jax.grad(lambda *a: jx.attention_ref(*a, causal=causal).sum(),
                              argnums=argnum)(*jin)
         for other in (want[argnum], g_jax, g_jref):
             np.testing.assert_allclose(f32(got[argnum]), f32(other), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_grads_match_ref_and_jax(jx):
+    """tests/test_kernels.py::test_flash_grads_match_ref on the port."""
+    check_flash_grads(jx, flash_inputs(), causal=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_grads_at_head_dim_80_match_ref_and_jax(causal, jx):
+    """The same at hubert-xlarge's head dim 80, bidirectional (its
+    encoder's mask) and causal."""
+    check_flash_grads(jx, flash_inputs(seed=5, hd=80), causal=causal)
 
 
 def ssd_inputs(case, seed=0):
@@ -226,6 +237,21 @@ def batch_of(vocab, B, S, seed):
             "targets": rng.integers(0, vocab, size=(B, S)).astype(np.int32)}
 
 
+def batch_for(cfg, B, S, seed):
+    """``batch_of``'s tokens and targets, with the inputs of ``cfg``'s input
+    mode: frame embeddings in place of the tokens (encoder), or vision
+    embeddings ahead of them (VLM; the targets cover the text)."""
+    b = batch_of(cfg.vocab_size, B, S, seed)
+    rng = np.random.default_rng(seed + 1000)
+    if cfg.input_mode == "embeds":
+        del b["tokens"]
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    elif cfg.input_mode == "vlm":
+        b["vision_embeds"] = rng.standard_normal((B, cfg.vision_seq, cfg.d_model)).astype(
+            np.float32)
+    return b
+
+
 def torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
@@ -233,15 +259,18 @@ def torch_batch(b):
 @pytest.mark.parametrize("arch,flag", [("tinyllama-1.1b", "use_flash"),
                                        ("mamba2-2.7b", "use_ssd_kernel"),
                                        ("zamba2-1.2b", "use_ssd_kernel"),
-                                       ("zamba2-1.2b", "use_flash")])
+                                       ("zamba2-1.2b", "use_flash"),
+                                       ("hubert-xlarge", "use_flash"),
+                                       ("qwen2-moe-a2.7b", "use_flash")])
 def test_model_level_kernel_equivalence(arch, flag):
     """The rows of tests/test_kernels.py's test (tinyllama, mamba2, and
-    zamba2 with the SSD kernel), and zamba2 with the flash kernel: the loss
-    with the kernel flag on and off agree within 1e-3, and so do the
-    gradients (within 1e-4 of each leaf's largest |g|)."""
+    zamba2 with the SSD kernel), zamba2 with the flash kernel, and the
+    encoder (bidirectional) and MoE families with it: the loss with the
+    kernel flag on and off agree within 1e-3, and so do the gradients
+    (within 1e-4 of each leaf's largest |g|)."""
     cfg0 = get_smoke_config(arch).replace(dtype=torch.float32)
     params = Model(cfg0).init(1, device="cpu")
-    b = torch_batch(batch_of(cfg0.vocab_size, 2, 64, 2))
+    b = torch_batch(batch_for(cfg0, 2, 64, 2))
     losses, grads = [], []
     for on in (False, True):
         loss = Model(cfg0.replace(**{flag: on})).loss(params, b)
@@ -289,6 +318,10 @@ LOSS_CONFIGS = {
     "granite-20b-smoke": ("smoke", "granite-20b"),     # MQA
     "granite-34b-smoke": ("smoke", "granite-34b"),
     "zamba2-smoke": ("smoke", "zamba2-1.2b"),          # hybrid: shared block at 3 sites
+    "qwen2-moe-smoke": ("smoke", "qwen2-moe-a2.7b"),   # MoE top-4 of 8 + shared experts
+    "mixtral-smoke": ("smoke", "mixtral-8x22b"),       # MoE top-2 of 4, window 16
+    "hubert-smoke": ("smoke", "hubert-xlarge"),        # encoder: frame embeddings, no embed
+    "llava-smoke": ("smoke", "llava-next-mistral-7b"),  # VLM: loss over the text tail
 }
 
 
@@ -327,14 +360,16 @@ def _flat(tree, prefix=""):
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_and_grads_match_jax(name, remat, jx):
     """transformer_loss (tinyllama, smollm, granite-20b and granite-34b
-    smoke, PRESETS['5m']), ssm_loss (mamba2 smoke) and hybrid_loss (zamba2
-    smoke, the shared block's gradients summed over its sites) and their
-    gradients, with remat on and off, from the JAX package's init."""
+    smoke, PRESETS['5m']; qwen2-moe and mixtral smoke with the MoE aux
+    term; hubert smoke on frame embeddings; llava smoke past its vision
+    prefix), ssm_loss (mamba2 smoke) and hybrid_loss (zamba2 smoke, the
+    shared block's gradients summed over its sites) and their gradients,
+    with remat on and off, from the JAX package's init."""
     from repro_torch.convert import from_jax
     jcfg, tcfg = configs(jx, name, remat=remat)
     jp = jx.Model(jcfg).init(jx.jax.random.PRNGKey(0))[0]
     tp = from_jax(tcfg, jp, device="cpu")
-    b = batch_of(jcfg.vocab_size, 2, 32, 6)
+    b = batch_for(jcfg, 2, 32, 6)
     jl, jg = jx.jax.value_and_grad(jx.Model(jcfg).loss)(
         jp, {k: jx.jnp.asarray(v) for k, v in b.items()})
     loss = Model(tcfg).loss(tp, torch_batch(b))
@@ -343,18 +378,9 @@ def test_loss_and_grads_match_jax(name, remat, jx):
     compare_grads({k: p.grad for k, p in tp.named_parameters()}, jg, name)
 
 
-@pytest.mark.parametrize("mode", ["embeds", "vlm", "moe"])
-def test_unported_modes_raise(mode):
-    cfg = get_smoke_config("tinyllama-1.1b").replace(dtype=torch.float32)
-    params = Model(cfg).init(0, device="cpu")
-    bad = (cfg.replace(n_experts=4) if mode == "moe" else cfg.replace(input_mode=mode))
-    item = "11" if mode == "moe" else "12"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Model(bad).loss(params, torch_batch(batch_of(cfg.vocab_size, 1, 8, 0)))
-
-
 # ------------------------------------------------------------- train step
-@pytest.mark.parametrize("name", ["preset-5m", "tinyllama-smoke", "zamba2-smoke"])
+@pytest.mark.parametrize("name", ["preset-5m", "tinyllama-smoke", "zamba2-smoke",
+                                  "qwen2-moe-smoke"])
 def test_three_train_steps_match_jax(name, jx):
     """Three steps of the port's train_step against the reference train loop's
     (value_and_grad of the loss, then adamw_update) from converted weights
