@@ -61,7 +61,21 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      steps of ``train_step`` (``Model.loss``, backward, AdamW) on
      full-width, full-depth hubert-xlarge on 4 x 1024 seeded frame
      embeddings;
- 10. one JSON line of train numbers, one of kernel numbers, then the result
+ 10. the distributed layer over NCCL at world size 1 (one card:
+     ``make_local_mesh()``, a (1, 1) ("data", "model") mesh, so every
+     placement is a Shard over an axis of size 1 but every DTensor, local
+     kernel call and collective path runs): 3 bf16 train steps of
+     full-width, full-depth tinyllama-1.1b (batch 4 x 1024) and of
+     zamba2-1.2b under ``tp_fsdp`` (``shard_params``, ``mesh_context``,
+     ``Model.loss``, ``adamw_update`` without warm-up) against the same
+     steps unsharded (every step's loss and gradient norm; the first
+     step's parameters and each tensor's update) with each kernel's
+     launches, the later ones timed both ways, and the peak memory; one full-width
+     qwen2-moe-a2.7b MoE layer in fp32 under ``dp_tp_moe`` against the
+     unsharded layer (output, aux, gradients); ``compressed_grads`` over the
+     tinyllama gradient tree (time, and its error against the exact mean,
+     at world 1 the int8 round trip);
+ 11. one JSON line of train numbers, one of kernel numbers, then the result
      line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -970,6 +984,257 @@ def encoder_train(torch, np, train_mod, Model, cfg, kernels, steps=2):
     return launches, num
 
 
+# the distributed phase: later steps timed each way (the first step of a
+# sharded run includes DTensor's sharding propagation, cached after it)
+DIST_STEPS = 3
+# AdamW without warm-up: the first step then moves a bf16 weight by about
+# lr = 3e-4, one to a few bf16 steps (at the default warm-up it moves it by
+# 3e-6, and most weights keep their value)
+DIST_ADAMW = {"warmup_steps": 0}
+# sharded steps against the unsharded ones at world size 1, where nothing is
+# split, so the two differ only in the order of a few sums. The first step:
+# loss and gradient norm, relative; each parameter, absolute (a gradient
+# near 0 can change sign with the order of its sum, and AdamW's first step
+# moves its weight by up to lr either way); each tensor's update (new minus
+# old) against the unsharded update's 2-norm. The later steps start from
+# parameters that differ by those few values: their loss and gradient norm,
+# relative. The limits stand 5-60x above the gaps measured on the H100
+# (PERF.md), and below what a lost or misplaced update gives.
+DIST_FIRST_RTOL = 1e-6
+DIST_PARAM_ATOL = 1e-4
+DIST_UPDATE_RTOL = 1e-3
+DIST_LATER_LOSS_RTOL = 1e-4
+DIST_LATER_GNORM_RTOL = 5e-3
+
+
+def _step(torch, model, params, batch, opt_state, acfg):
+    """One train step: ``Model.loss``, backward, ``adamw_update`` on
+    ``.grad``. Returns (loss, gnorm, the gradients)."""
+    from repro_torch.optim import adamw_update
+    loss = model.loss(params, batch)
+    loss.backward()
+    named = dict(params.named_parameters())
+    grads = {k: p.grad for k, p in named.items()}
+    _, _, gnorm = adamw_update(grads, named, opt_state, acfg)
+    for p in named.values():
+        p.grad = None
+    return loss.detach(), gnorm, grads
+
+
+def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
+    """``DIST_STEPS`` steps of ``cfg`` unsharded, then the same under
+    ``strategy`` on ``mesh`` (``shard_params``, ``mesh_context``), from the
+    same seeded weights and batches. Holds the sharded steps against the
+    unsharded ones (every step's loss and gradient norm; the first step's
+    parameters and each tensor's update); returns their numbers (the
+    launches of the sharded first step) and, with ``keep_grads``, the
+    unsharded first step's gradients."""
+    from repro_torch.distributed import STRATEGIES, mesh_context, place, shard_params
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    model, acfg = Model(cfg), AdamWConfig(**DIST_ADAMW)
+    batches = [make_batch(torch, np, cfg, TRAIN["batch"], TRAIN["seq"], seed=i)
+               for i in range(DIST_STEPS)]
+    runs, first = {}, {}
+    for name in ("unsharded", strategy):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(0, device="cuda")
+        init = ({k: p.detach().clone() for k, p in params.named_parameters()}
+                if name == "unsharded" else None)
+
+        def ctx():
+            return (contextlib.nullcontext() if name == "unsharded"
+                    else mesh_context(mesh, STRATEGIES[strategy]))
+        with ctx():
+            if name != "unsharded":
+                place(params, shard_params(params, model.logical_axes(params)))
+        opt_state = adamw_init(dict(params.named_parameters()))
+        times, losses, gnorms = [], [], []
+        for i, b in enumerate(batches):
+            for k in kernels:
+                k["counter"].launches = 0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with ctx():
+                loss, gnorm, grads = _step(torch, model, params, b, opt_state, acfg)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            losses.append(float(full(loss)))
+            gnorms.append(float(gnorm))
+            if i == 0:
+                launches = counts(kernels)
+                after = {k: full(p.detach()) for k, p in params.named_parameters()}
+                if name == "unsharded":
+                    first["after"] = {k: t.clone() for k, t in after.items()}
+                    first["update_norm"] = {k: (t.float() - init[k].float()).norm().item()
+                                            for k, t in after.items()}
+                    init = None
+                    if keep_grads:
+                        first["grads"] = dict(grads)
+                else:
+                    param_diff, update_err = 0.0, {}
+                    for k, t in after.items():
+                        d = t.float() - first["after"][k].float()
+                        param_diff = max(param_diff, d.abs().max().item())
+                        un = first["update_norm"][k]
+                        update_err[k] = d.norm().item() / un if un else d.norm().item()
+                    del first["after"]
+                del after
+            del grads
+        if not all(map(math.isfinite, losses + gnorms)):
+            raise AssertionError(f"{cfg.name} {name}: a loss or gnorm is not finite")
+        runs[name] = {"losses": losses, "gnorms": gnorms, "steps_s": times,
+                      "later_step_s": statistics.median(times[1:]),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": launches}
+        del params, opt_state
+    sh, un = runs[strategy], runs["unsharded"]
+    if not max(first["update_norm"].values()) > 0:
+        raise AssertionError(f"{cfg.name}: the unsharded step updated no parameter")
+    d_loss = [abs(a - b) / abs(b) for a, b in zip(sh["losses"], un["losses"])]
+    d_gnorm = [abs(a - b) / b for a, b in zip(sh["gnorms"], un["gnorms"])]
+    worst = max(update_err, key=update_err.get)
+    print(f"[dist] {cfg.name} {strategy} on mesh {tuple(mesh.mesh.shape)} vs unsharded, "
+          f"{DIST_STEPS} steps: losses {sh['losses']} vs {un['losses']} (relative diffs "
+          f"{d_loss}), gnorms {sh['gnorms']} vs {un['gnorms']} ({d_gnorm}); limits "
+          f"{DIST_FIRST_RTOL} for the first step, then {DIST_LATER_LOSS_RTOL} and "
+          f"{DIST_LATER_GNORM_RTOL}; first step: largest parameter diff {param_diff:.3g} "
+          f"(limit {DIST_PARAM_ATOL}), largest update diff {update_err[worst]:.3g} of its "
+          f"norm ({worst}, limit {DIST_UPDATE_RTOL}); "
+          f"later steps {sh['later_step_s']:.4f} s vs {un['later_step_s']:.4f} s "
+          f"({sh['later_step_s'] / un['later_step_s']:.3f}x), first {sh['steps_s'][0]:.3f} s "
+          f"vs {un['steps_s'][0]:.3f} s; peak {sh['peak_gib']:.3f} vs {un['peak_gib']:.3f} "
+          f"GiB; launches {sh['launches']} vs {un['launches']}")
+    if not (d_loss[0] <= DIST_FIRST_RTOL and d_gnorm[0] <= DIST_FIRST_RTOL
+            and param_diff <= DIST_PARAM_ATOL and update_err[worst] <= DIST_UPDATE_RTOL
+            and max(d_loss[1:]) <= DIST_LATER_LOSS_RTOL
+            and max(d_gnorm[1:]) <= DIST_LATER_GNORM_RTOL):
+        raise AssertionError(f"{cfg.name} {strategy}: the sharded steps disagree with the "
+                             f"unsharded ones")
+    if sh["launches"] != un["launches"]:
+        raise AssertionError(f"{cfg.name} {strategy}: launches {sh['launches']} vs "
+                             f"{un['launches']} unsharded")
+    return {"strategy": strategy, "sharded": sh, "unsharded": un, "loss_rel_diff": d_loss,
+            "gnorm_rel_diff": d_gnorm, "max_param_diff": param_diff,
+            "max_update_rel_diff": [worst, update_err[worst]]}, first.get("grads")
+
+
+def dist_moe_layer(torch, cfg, mesh):
+    """One full-width MoE layer of ``cfg`` in fp32 on 4 x 1024 tokens under
+    ``dp_tp_moe`` on ``mesh`` against the unsharded layer: with one data
+    shard the capacity is the same, so output, aux and the gradients must
+    agree to ``check_moe_layer``'s tolerance."""
+    from repro_torch.distributed import STRATEGIES, mesh_context, place, shard_params
+    from repro_torch.distributed.sharding import full
+    from repro_torch.models import Model
+    from repro_torch.models.moe import MoE, moe_apply
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = MoE(cfg.d_model, cfg.moe_d_ff, cfg.n_experts, torch.float32, cfg.shared_d_ff,
+                "cuda", gen)
+    x = torch.randn((TRAIN["batch"], TRAIN["seq"], cfg.d_model), generator=gen, device="cuda")
+    out = {}
+    for name in ("unsharded", "dp_tp_moe"):
+        ctx = (mesh_context(mesh, STRATEGIES["dp_tp_moe"]) if name != "unsharded"
+               else contextlib.nullcontext())
+        if name != "unsharded":          # the same weights, placed by the strategy
+            with mesh_context(mesh, STRATEGIES["dp_tp_moe"]):
+                place(layer, shard_params(layer, Model.logical_axes(layer)))
+        layer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with ctx:
+            y, aux = moe_apply(layer, x, n_top=cfg.n_experts_per_tok)
+            (y.float().square().mean() + aux).backward()
+            y, aux = full(y.detach()), float(full(aux.detach()))
+        torch.cuda.synchronize()
+        out[name] = {"y": y, "aux": aux, "s": time.monotonic() - t0,
+                     "grads": {k: full(p.grad).clone() for k, p in layer.named_parameters()}}
+    sh, un = out["dp_tp_moe"], out["unsharded"]
+    scale = un["y"].abs().max().item()
+    err = (sh["y"] - un["y"]).abs().max().item()
+    g_err = max(((sh["grads"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                for k, g in un["grads"].items())
+    print(f"[dist] {cfg.name} MoE layer under dp_tp_moe on mesh {tuple(mesh.mesh.shape)} vs "
+          f"unsharded, fp32, {TRAIN['batch']} x {TRAIN['seq']} tokens: output max|diff| "
+          f"{err:.3g} of max|y| {scale:.3g} (limit {MOE_RTOL} of it), aux {sh['aux']:.6f} vs "
+          f"{un['aux']:.6f}, gradients {g_err:.3g} of each largest (limit {MOE_RTOL}); "
+          f"forward+backward {sh['s']:.4f} s vs {un['s']:.4f} s (first call each)")
+    if not (err <= MOE_RTOL * scale and abs(sh["aux"] - un["aux"]) <= MOE_RTOL * abs(un["aux"])
+            and g_err <= MOE_RTOL):
+        raise AssertionError(f"{cfg.name} sharded MoE layer disagrees with the unsharded one")
+    del layer, out
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": err, "max_abs_y": scale, "aux": [sh["aux"], un["aux"]],
+            "grad_rel_diff": g_err, "sharded_s": sh["s"], "unsharded_s": un["s"]}
+
+
+def dist_compressed(torch, grads):
+    """``compressed_grads`` over a gradient tree at world size 1: its time
+    (median of 5 calls after one) and its error against the exact mean."""
+    from repro_torch.optim import compressed_grads
+    compressed_grads(grads)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = compressed_grads(grads)
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+    rel = max(((out[k].float() - g.float()).abs().max() / g.float().abs().max()
+               .clamp(min=1e-30)).item() for k, g in grads.items())
+    n = sum(g.numel() for g in grads.values())
+    ms = statistics.median(times) * 1e3
+    print(f"[dist] compressed_grads over {len(grads)} tensors ({n} values): {ms:.3f} ms "
+          f"(median of {times}), error {rel:.3g} of each tensor's largest |g|")
+    if not rel < 1e-2:
+        raise AssertionError(f"compressed_grads: error {rel:.3g}")
+    return {"ms": ms, "times_s": times, "max_rel_err": rel, "n_tensors": len(grads),
+            "n_values": n}
+
+
+def distributed_phase(torch, np, get_config, kernels):
+    """Phase 10: the distributed layer on one card over NCCL at world size
+    1. Returns its numbers and each kernel's launches on the sharded
+    steps."""
+    import logging
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    # DTensor notes each reduction over both axes of the mesh as two collectives
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    mesh = make_local_mesh()
+    print(f"[dist] {dist.get_backend()} world {dist.get_world_size()}, mesh "
+          f"{tuple(mesh.mesh.shape)} over {mesh.mesh_dim_names}")
+    K1, K2 = (k["name"] for k in kernels)
+    nums = {}
+    try:
+        dense = get_config("tinyllama-1.1b").replace(use_flash=True)
+        nums[dense.name], grads = dist_train_step(torch, np, dense, kernels, mesh, "tp_fsdp",
+                                                  keep_grads=True)
+        want = {K1: 2 * dense.n_layers, K2: 0}
+        if nums[dense.name]["sharded"]["launches"] != want:
+            raise AssertionError(f"sharded tinyllama launched "
+                                 f"{nums[dense.name]['sharded']['launches']}, expected {want}")
+        nums["compressed_grads"] = dist_compressed(torch, grads)
+        del grads
+        zamba = get_config("zamba2-1.2b").replace(use_flash=True, use_ssd_kernel=True)
+        sites = len(range(0, zamba.n_layers, zamba.attn_every))
+        nums[zamba.name], _ = dist_train_step(torch, np, zamba, kernels, mesh, "tp_fsdp")
+        want = {K1: sites, K2: 2 * zamba.n_layers}
+        if nums[zamba.name]["sharded"]["launches"] != want:
+            raise AssertionError(f"sharded zamba2 launched "
+                                 f"{nums[zamba.name]['sharded']['launches']}, expected {want}")
+        nums["qwen2-moe-a2.7b/moe_layer"] = dist_moe_layer(torch, get_config("qwen2-moe-a2.7b"),
+                                                           mesh)
+    finally:
+        dist.destroy_process_group()
+    launches = {k["name"]: {arch: nums[arch]["sharded"]["launches"][k["name"]]
+                            for arch in ("tinyllama-1.1b", "zamba2-1.2b")} for k in kernels}
+    return nums, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1139,13 +1404,20 @@ def main() -> int:
     launches = {K1: serve_launches["tinyllama-1.1b"][K1],
                 K2: serve_launches["mamba2-2.7b"][K2]}
 
-    # 10. train numbers, kernel numbers, then the result line
-    print(json.dumps({"train": train_nums, "families": family_nums}))
+    # 10. the distributed layer over NCCL at world size 1
+    dist_nums, sharded_launches = distributed_phase(torch, np, get_config, kernels)
+
+    # 11. train numbers, kernel numbers, then the result line
+    print(json.dumps({"train": train_nums, "families": family_nums,
+                      "distributed": dist_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
          "replaces": k["replaces"], "launches": launches[k["name"]], **rows[k["name"]],
          "train_launches": train_paths[k["name"]][0], "train_path": train_paths[k["name"]][1],
+         "sharded_launches": sharded_launches[k["name"]],
+         "sharded_path": "one tp_fsdp train step of 4 x 1024 tokens on a (1, 1) mesh "
+                         "over NCCL, each arch",
          "zamba2": {"serve_launches": serve_launches["zamba2-1.2b"][k["name"]],
                     "train_launches": hybrid_train[k["name"]],
                     "paths": "zamba2-1.2b serve (8 requests, 2 waves of 4 x 1024) and "

@@ -2,7 +2,7 @@
 checkpoint the I/O-aware runtime hides, on one GPU.
 
   python3 scripts/profile_train_torch.py [--arch tinyllama-1.1b|mamba2-2.7b|zamba2-1.2b]
-      [--steps 3] [--overlap-steps 80] [--ckpt-every 40]
+      [--steps 3] [--strategy tp_fsdp] [--overlap-steps 80] [--ckpt-every 40]
       [--order io,base,base,io]
 
 Trains a full-width model in bf16 through its kernels (tinyllama-1.1b: flash
@@ -11,7 +11,10 @@ tokens:
   1. ``--steps`` train steps after a warm-up one, each cut at device
      synchronisations into the loss forward, the backward and AdamW (host
      clock); then one step under ``torch.profiler``: device-busy share, each
-     kernel's device time, the matrix products', the top kernels;
+     kernel's device time, the matrix products', the top kernels; with
+     ``--strategy``, the parameters are placed by that strategy on
+     ``make_local_mesh()`` (NCCL at world size 1) and the steps run under
+     ``mesh_context``, as ``chip_smoke.py``'s distributed phase runs them;
   2. with ``--overlap-steps``: ``train`` in the I/O-aware mode (``io``:
      asynchronous checkpoints, prefetched batches) and the baseline
      (``base``: synchronous checkpoints) in ``--order``, a checkpoint every
@@ -25,6 +28,7 @@ tokens:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -65,6 +69,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(KERNEL), default="tinyllama-1.1b")
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--strategy", default=None,
+                    help="run part 1 sharded by this strategy at world size 1")
     ap.add_argument("--overlap-steps", type=int, default=0)
     ap.add_argument("--ckpt-every", type=int, default=40)
     ap.add_argument("--order", default="io,base,base,io")
@@ -95,29 +101,41 @@ def main(argv=None) -> int:
     # 1. one step cut into its parts, then profiled
     model = Model(cfg)
     params = model.init(0, device="cuda")
+    ctx = contextlib.nullcontext
+    if args.strategy:
+        from repro_torch.distributed import STRATEGIES, mesh_context, place, shard_params
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh()
+
+        def ctx():
+            return mesh_context(mesh, STRATEGIES[args.strategy])
+        with ctx():
+            place(params, shard_params(params, model.logical_axes(params)))
     opt_state = adamw_init(params.state_dict())
     opt = AdamWConfig()
     corpus = SyntheticCorpus(cfg.vocab_size, S, B, seed=0)
     parts = []
     for step in range(args.steps + 1):
         batch = {k: torch.from_numpy(v).cuda() for k, v in corpus.batch(step).items()}
-        opt_state, p = step_parts(torch, model, params, opt_state, batch, opt)
+        with ctx():
+            opt_state, p = step_parts(torch, model, params, opt_state, batch, opt)
         parts.append(p)
     fwd, bwd, adam = (statistics.median(x) for x in zip(*parts[1:]))
-    print(f"[step] {args.arch} B={B} S={S} bf16 (median of {args.steps} after a warm-up): "
+    print(f"[step] {args.arch} {args.strategy or 'unsharded'} B={B} S={S} bf16 (median of {args.steps} after a warm-up): "
           f"forward {fwd:.4f} s, backward {bwd:.4f} s, AdamW {adam:.4f} s, "
           f"sum {fwd + bwd + adam:.4f} s; all {parts}")
 
     def one_step():
         nonlocal opt_state
-        opt_state, _ = step_parts(torch, model, params, opt_state, batch, opt)
+        with ctx():
+            opt_state, _ = step_parts(torch, model, params, opt_state, batch, opt)
     wall, kernels, prof = profiled(torch, one_step)
     busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     kern = kernel_ms(kernels, knames)
     mm_ms = sum(a.self_device_time_total for a in prof.key_averages()
                 if a.key in MATMUL_OPS) / 1e3
     print(f"[profile] one step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall:.1f}%); "
+          f"({100 * busy / wall:.1f}%), {len(kernels)} device kernels; "
           + "; ".join(f"{k} {ms:.2f} ms over {n} launches ({100 * ms / busy:.1f}% of busy)"
                       for k, ms, n in kern)
           + f"; matrix products {mm_ms:.1f} ms ({100 * mm_ms / busy:.1f}%)")
@@ -125,6 +143,9 @@ def main(argv=None) -> int:
     print("\n".join(table.splitlines()[:16]))
     del model, params, opt_state, prof, kernels
     torch.cuda.empty_cache()
+    if args.strategy:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
     # 2. the I/O-aware mode against the baseline, mid-run checkpoints
     if not args.overlap_steps:

@@ -1,9 +1,16 @@
 """Checkpoint manager: async sharded saves routed through the I/O-aware
 runtime (THE paper integration), atomic manifest commit, latest-valid
-discovery for restart, restore onto the devices of a like tree. Mirror of
+discovery for restart, elastic re-sharding restore. Mirror of
 ``repro.checkpoint.manager``; its checkpoints are the JAX package's
 (``serializer``), and its I/O tasks come from the port's copy of the
 runtime.
+
+A tree of DTensors is saved as the reference's single controller saves a
+global array: whole logical leaves. Every rank gathers each leaf, rank 0
+writes the shards through its runtime, and the other ranks wait at a barrier
+until the manifest is committed (at the end of ``save`` when it writes
+inline, else in ``wait``). Every rank calls ``save`` and ``wait`` alike. A
+sharded save waits for the one before it instead of skipping.
 
 Each shard write is an I/O task (``@io`` + ``storageBW="auto"`` by default):
 it overlaps with subsequent train steps, and the auto-tuner learns how many
@@ -29,10 +36,41 @@ import warnings
 from pathlib import Path
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..convert import LayerStack
 from ..core import constraint, current_runtime, io, task
 from ..core.runtime import copy_fsync
+from ..distributed.sharding import Sharding, place_tensor
 from .serializer import (flatten_with_paths, plan_shards, read_shard, to_host,
                          unflatten_like, write_shard)
+
+
+def _is_sharded(leaves) -> bool:
+    return any(isinstance(t, DTensor)
+               for _, v in leaves for t in (v if isinstance(v, LayerStack) else [v]))
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _place_like(tree, like, shardings):
+    """``tree`` with each tensor placed by its ``shardings`` leaf (a
+    ``Sharding``), or, without one, laid out as its ``like`` leaf when that
+    is a DTensor."""
+    if isinstance(tree, torch.Tensor):
+        if shardings is None and isinstance(like, DTensor):
+            shardings = Sharding(like.device_mesh, tuple(like.placements))
+        return tree if shardings is None else place_tensor(tree, shardings)
+    if isinstance(tree, dict):
+        return {k: _place_like(v, like[k], None if shardings is None else shardings[k])
+                for k, v in tree.items()}
+    subs = [None] * len(tree) if shardings is None else shardings
+    out = [_place_like(*args) for args in zip(tree, like, subs)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
 
 
 @constraint(storageBW="auto", maxRetries=2)
@@ -116,6 +154,7 @@ class CheckpointManager:
         #                             device of it is offline, saves reroute
         #                             shards to the shared FS directly
         self._in_flight = None  # (step, commit future)
+        self._barrier_pending = False  # a sharded save not yet waited for
 
     def _fast_tier_offline(self, rt) -> bool:
         """True when the cluster models the fast tier and every device
@@ -133,6 +172,16 @@ class CheckpointManager:
         Every leaf is copied to the host before ``save`` returns, so the
         caller may update its tensors in place at once."""
         rt = current_runtime()
+        leaves = flatten_with_paths(tree)
+        sharded = _is_sharded(leaves)
+        if sharded:
+            self.wait()                 # the previous sharded save, on every rank
+            host_leaves = [(k, to_host(v)) for k, v in leaves]
+            if _rank() != 0:
+                self._barrier_pending = True
+                if rt is None or sync:
+                    self.wait()
+                return True
         if self._in_flight is not None and rt is not None:
             prev_step, fut = self._in_flight
             if not fut.resolved():
@@ -141,7 +190,8 @@ class CheckpointManager:
                 rt.wait_on(fut)
             self._in_flight = None
 
-        host_leaves = [(k, to_host(v)) for k, v in flatten_with_paths(tree)]
+        if not sharded:
+            host_leaves = [(k, to_host(v)) for k, v in leaves]
         step_dir = self.dir / f"step_{step:08d}"
         step_dir.mkdir(parents=True, exist_ok=True)
         plan = plan_shards(host_leaves, self.n_shards)
@@ -195,6 +245,10 @@ class CheckpointManager:
             rec.on_ckpt("save", step, mode,
                         sum(1 for entries in plan if entries))
         self._gc()
+        if sharded:
+            self._barrier_pending = True
+            if mode == "sync":
+                self.wait()
         return True
 
     def wait(self):
@@ -208,6 +262,9 @@ class CheckpointManager:
                 rec.on_ckpt("wait", step, "async", 0)
             # the last save just became durable: one final fast-tier trim
             self._gc()
+        if self._barrier_pending:       # every rank: rank 0's commit is durable
+            self._barrier_pending = False
+            dist.barrier()
 
     # --------------------------------------------------------------- restore
     def steps(self) -> list[int]:
@@ -247,9 +304,14 @@ class CheckpointManager:
                                f"{size} != {frag['total_bytes']}")
         return None
 
-    def restore(self, like_tree, step: Optional[int] = None):
+    def restore(self, like_tree, step: Optional[int] = None, shardings=None):
         """Rebuild the tree: each leaf in the dtype and on the device of its
-        counterpart in ``like_tree`` (the reference's ``shardings``).
+        counterpart in ``like_tree``; if ``shardings`` (a tree of
+        ``Sharding``s laid out as ``like_tree``, e.g. from
+        ``distributed.shard_params``) is given, each leaf is placed by its
+        sharding on that (possibly different) mesh — elastic restart.
+        Without it a leaf whose counterpart is a DTensor is laid out as that
+        one. Every rank reads the whole checkpoint.
 
         Every candidate step is verified shard-complete before it is read;
         when the newest step is torn (a shard vanished or truncated — e.g.
@@ -289,7 +351,8 @@ class CheckpointManager:
         by_key: dict = {}
         for frag in manifest["shards"]:
             read_shard(step_dir / frag["file"], frag, by_key)
-        return unflatten_like(like_tree, by_key), step
+        tree = unflatten_like(like_tree, by_key)
+        return _place_like(tree, like_tree, shardings), step
 
     def _gc(self):
         steps = self.steps()

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..convert import LayerStack, jax_path, stack_layers
+from ..distributed.sharding import full
 
 
 def _key(path) -> str:
@@ -58,13 +59,15 @@ def flatten_with_paths(tree, prefix: str = ""):
 
 def to_host(leaf) -> torch.Tensor:
     """A CPU copy of ``leaf`` (a ``LayerStack`` stacked on axis 0), taken
-    now: the caller may update the device tensors in place right after."""
+    now: the caller may update the device tensors in place right after. A
+    DTensor is gathered whole first, so every rank of its mesh must call
+    this."""
     if isinstance(leaf, LayerStack):
         out = torch.empty((len(leaf), *leaf[0].shape), dtype=leaf[0].dtype)
         for i, t in enumerate(leaf):
-            out[i].copy_(t.detach())
+            out[i].copy_(full(t.detach()))
         return out
-    return leaf.detach().to("cpu", copy=True)
+    return full(leaf.detach()).to("cpu", copy=True)
 
 
 def plan_shards(leaves, n_shards: int):

@@ -14,7 +14,9 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import attention_specs, shard_map, unshard_unless_divides
 from ..kernels.flash_attention import ops as flash_ops
 from .layers import _init, apply_rope
 
@@ -23,6 +25,9 @@ class Attention(nn.Module):
     """``q (D,H,hd)``, ``k``/``v`` ``(D,KV,hd)``, ``o (H,hd,D_out)``; the
     output width ``d_out`` is the input width ``D`` unless given (zamba2's
     shared block reads ``2·D`` and writes ``D``)."""
+
+    AXES = {"q": ("embed", "heads", "head_dim"), "k": ("embed", "kv_heads", "head_dim"),
+            "v": ("embed", "kv_heads", "head_dim"), "o": ("heads", "head_dim", "embed")}
 
     def __init__(self, d_model, n_heads, n_kv, head_dim, dtype, device=None,
                  generator=None, d_out=None):
@@ -44,7 +49,8 @@ def attn_init(generator, d_model, n_heads, n_kv, head_dim, dtype,
 def _project(x, w):
     """x (..., D) @ w (D, N, hd) -> (..., N, hd), contiguous."""
     D, N, hd = w.shape
-    return (x @ w.reshape(D, N * hd)).reshape(*x.shape[:-1], N, hd)
+    y = unshard_unless_divides(x @ w.reshape(D, N * hd), -1, N)
+    return y.reshape(*x.shape[:-1], N, hd)
 
 
 def _mask(q_pos, k_pos, causal: bool, window: int):
@@ -101,13 +107,21 @@ def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
     q = apply_rope(_project(x, p.q), positions, rope_theta)
     k = apply_rope(_project(x, p.k), positions, rope_theta)
     v = _project(x, p.v)
-    if use_flash:
-        o = flash_ops.flash_attention(q, k, v, causal, window,
-                                      flash_block, flash_block)
-    elif S >= chunk_q_threshold and S % chunk_q == 0:
-        o = _chunked_attn(q, k, v, positions, causal, window, chunk_q)
-    else:
-        o = _dense_attn(q, k, v, positions, causal, window)
+
+    def attend(q, k, v, positions):
+        if use_flash:
+            return flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                             causal, window, flash_block, flash_block)
+        if S >= chunk_q_threshold and S % chunk_q == 0:
+            return _chunked_attn(q, k, v, positions, causal, window, chunk_q)
+        return _dense_attn(q, k, v, positions, causal, window)
+
+    if isinstance(q, DTensor):
+        # under a mesh: on each rank's batch (and whole GQA groups of heads),
+        # as XLA partitions the reference; the kernel needs local tensors
+        sq, skv = attention_specs(q.shape, k.shape, q.device_mesh)
+        attend = shard_map(attend, q.device_mesh, (sq, skv, skv, sq[:1]), sq)
+    o = attend(q, k, v, positions)
     H, hd, D_out = p.o.shape
     out = o.reshape(B, S, H * hd) @ p.o.reshape(H * hd, D_out)
     return (out, (k, v)) if return_kv else out

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import local_gather_last, unshard_dim
+
 
 def _init(shape, scale, dtype, device, generator):
     """N(0, 1) * scale drawn in fp32, then cast (as the reference's _init).
@@ -71,6 +73,9 @@ def apply_rope(x, positions, theta=10000.0):
 # SwiGLU MLP
 # --------------------------------------------------------------------------
 class MLP(nn.Module):
+    #: each parameter's logical axes (the reference's twin ``axes`` tree)
+    AXES = {"gate": ("embed", "mlp"), "up": ("embed", "mlp"), "down": ("mlp", "embed")}
+
     def __init__(self, d_model, d_ff, dtype, device=None, generator=None):
         super().__init__()
         s_in, s_ff = 1 / math.sqrt(d_model), 1 / math.sqrt(d_ff)
@@ -100,8 +105,11 @@ def embed_init(generator, vocab_padded, d_model, dtype, device=None):
 
 
 def embed_lookup(table, tokens):
-    """``jnp.take(table, tokens, axis=0)`` for in-range token ids."""
-    return F.embedding(tokens, table)
+    """``jnp.take(table, tokens, axis=0)`` for in-range token ids. A DTensor
+    table's vocab dimension is gathered first: DTensor's rule for a
+    vocab-sharded ``embedding`` leaves a mask placement whose reduction
+    fails."""
+    return F.embedding(tokens, unshard_dim(table, 0))
 
 
 # --------------------------------------------------------------------------
@@ -110,8 +118,9 @@ def embed_lookup(table, tokens):
 def softmax_xent(logits, labels, vocab_real: int, z_loss: float = 0.0):
     """Cross-entropy in fp32 with padded-vocab masking. labels==-1 ignored.
     The padded columns are replaced by -1e9 through a concatenation, not
-    written in place, so that no gradient reaches them."""
-    logits = logits.float()
+    written in place, so that no gradient reaches them. On a DTensor the
+    label's logit is picked on each rank's shard (``local_gather_last``)."""
+    logits = unshard_dim(logits, -1).float()
     vpad = logits.shape[-1]
     if vpad > vocab_real:
         logits = torch.cat([logits[..., :vocab_real],
@@ -119,7 +128,7 @@ def softmax_xent(logits, labels, vocab_real: int, z_loss: float = 0.0):
     lse = torch.logsumexp(logits, dim=-1)
     valid = labels >= 0
     labels_safe = torch.where(valid, labels, 0).long()
-    picked = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    picked = local_gather_last(logits, labels_safe)
     nll = (lse - picked) * valid
     loss = nll.sum() / valid.sum().clamp(min=1)
     if z_loss:

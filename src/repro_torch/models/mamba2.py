@@ -18,7 +18,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..distributed.sharding import entry_axes, shard_map, spec_for, unshard_unless_divides
 from .layers import _init, rmsnorm, rmsnorm_init
 
 
@@ -28,6 +30,13 @@ class Mamba2(nn.Module):
     (A = -exp(0) = -1, D = 1, softplus(-2) ~ 0.13, norm 1).
     ``generator=None`` leaves the drawn weights uninitialised (they are
     about to be loaded)."""
+
+    AXES = {"in_x": ("embed", "mlp"), "in_z": ("embed", "mlp"),
+            "in_bc": ("embed", None),      # B/C are shared across heads: replicate
+            "in_dt": ("embed", "heads"), "conv_x": ("conv", "mlp"), "conv_x_b": ("mlp",),
+            "conv_bc": ("conv", None), "conv_bc_b": (None,), "A_log": ("heads",),
+            "D": ("heads",), "dt_bias": ("heads",), "norm_w": ("mlp",),
+            "out_proj": ("mlp", "embed")}
 
     def __init__(self, d_model, *, expand=2, headdim=64, ssm_state=128,
                  conv_dim=4, dtype=torch.bfloat16, device=None, generator=None):
@@ -62,6 +71,8 @@ class SSMLayer(Mamba2):
     """A Mamba2 mixer plus its pre-norm ``ln``: one layer of the SSM family
     and of zamba2's backbone, the reference's layer dict."""
 
+    AXES = {**Mamba2.AXES, "ln": ("norm",)}
+
     def __init__(self, cfg, device=None, generator=None):
         super().__init__(cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
                          ssm_state=cfg.ssm_state, dtype=cfg.dtype, device=device,
@@ -76,7 +87,17 @@ def mamba2_init(generator, d_model, *, expand=2, headdim=64, ssm_state=128,
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv, window K. x: (B, S, C); w: (K, C)."""
+    """Depthwise causal conv, window K. x: (B, S, C); w: (K, C). Under a
+    mesh it runs on each rank's batch and channels (the sequence whole),
+    whose gradients of ``w`` and ``b`` are its batch's part."""
+    if isinstance(x, DTensor):
+        sx = tuple(spec_for(x.shape, ("batch", None, "mlp"), x.device_mesh)) + (None,) * 3
+        bax, cax = sx[0], sx[2]
+        fn = shard_map(_causal_conv, x.device_mesh,
+                         in_specs=((bax, None, cax), (None, cax), (cax,)),
+                         out_specs=(bax, None, cax),
+                         partial_grads=[(), entry_axes(bax), entry_axes(bax)])
+        return fn(x, w, b)
     K = w.shape[0]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(K))
@@ -87,6 +108,8 @@ def ssd_chunked(x, dt, B, C, A_log, D, chunk: int, use_kernel: bool = False):
     """SSD scan. x: (b, S, H, P); dt: (b, S, H); B, C: (b, S, N).
     Returns y: (b, S, H, P) and final state (b, H, N, P). S must be a
     multiple of ``chunk``, as in the reference."""
+    if isinstance(x, DTensor):
+        return _ssd_sharded(x, dt, B, C, A_log, D, chunk, use_kernel)
     b, S, H, Pd = x.shape
     N = B.shape[-1]
     if S % chunk:
@@ -132,6 +155,22 @@ def ssd_chunked(x, dt, B, C, A_log, D, chunk: int, use_kernel: bool = False):
     return y, h
 
 
+def _ssd_sharded(x, dt, B, C, A_log, D, chunk, use_kernel):
+    """``ssd_chunked`` under a mesh: on each rank's batch and heads (the
+    scan is independent across both), with B and C, shared across heads,
+    whole on each rank. A rank's gradient of B and C is its heads' part,
+    and of ``A_log`` and ``D`` its batch's part; the parts are added."""
+    sx = tuple(spec_for(x.shape, ("batch", None, "heads", None), x.device_mesh)) + (None,) * 4
+    bax, hax = sx[0], sx[2]
+    fn = shard_map(lambda *a: ssd_chunked(*a, chunk, use_kernel), x.device_mesh,
+                     in_specs=((bax, None, hax), (bax, None, hax), (bax,), (bax,), (hax,),
+                               (hax,)),
+                     out_specs=[(bax, None, hax), (bax, hax)],
+                     partial_grads=[(), (), entry_axes(hax), entry_axes(hax),
+                                    entry_axes(bax), entry_axes(bax)])
+    return fn(x, dt, B, C, A_log, D)
+
+
 class MambaCache(NamedTuple):
     conv_x: torch.Tensor   # (B, K-1, d_inner) last inputs to the x conv
     conv_bc: torch.Tensor  # (B, K-1, 2N)
@@ -165,7 +204,8 @@ def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
     x = u @ p.in_x
     bc = u @ p.in_bc
     dt = u @ p.in_dt
-    x = _causal_conv(x, p.conv_x, p.conv_x_b).reshape(Bsz, S, H, Pd)
+    x = unshard_unless_divides(_causal_conv(x, p.conv_x, p.conv_x_b), -1, H)
+    x = x.reshape(Bsz, S, H, Pd)
     bc = _causal_conv(bc, p.conv_bc, p.conv_bc_b)
     Bm, Cm = bc[..., :N], bc[..., N:]
     dt = F.softplus(dt.float() + p.dt_bias)

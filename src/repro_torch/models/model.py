@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed import shard_activation
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
 from .mamba2 import MambaCache, SSMLayer, mamba2_decode, mamba2_forward, ssm_layer
@@ -28,6 +29,8 @@ class SSM(nn.Module):
     """``embed (Vpad, D)``, ``layers``, ``final_norm (D,)`` and, unless the
     embeddings are tied, ``head (D, Vpad)``. ``generator=None`` leaves the
     drawn weights uninitialised (they are about to be loaded)."""
+
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("norm",), "head": ("embed", "vocab")}
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
@@ -55,12 +58,14 @@ def _lm_logits(params, cfg, h):
 def _ssm_backbone(params, cfg, h):
     """Every layer in turn; with ``cfg.remat`` each one is checkpointed."""
     for lp in params.layers:
+        h = shard_activation(h)
         h = remat(cfg.remat, ssm_layer, lp, h, cfg)
     return h
 
 
 def ssm_loss(params, cfg, batch):
-    h = _ssm_backbone(params, cfg, embed_lookup(params.embed, batch["tokens"]))
+    h = shard_activation(embed_lookup(params.embed, batch["tokens"]))
+    h = _ssm_backbone(params, cfg, h)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
@@ -78,13 +83,14 @@ def ssm_prefill(params, cfg, batch, cache_len):
     matches it: the conv caches start at zero, not at the prompt's last K-1
     conv inputs (the decode continues with a fresh conv window); only the
     SSM state ``h`` carries the prompt over."""
-    h = embed_lookup(params.embed, batch["tokens"])
+    h = shard_activation(embed_lookup(params.embed, batch["tokens"]))
     L = cfg.n_layers
     base = MambaCache.init(h.shape[0], cfg.d_model, expand=cfg.ssm_expand,
                            headdim=cfg.ssm_headdim, ssm_state=cfg.ssm_state,
                            dtype=cfg.dtype, device=h.device)
     caches = MambaCache(*(t.new_zeros((L, *t.shape)) for t in base))
     for i, lp in enumerate(params.layers):
+        h = shard_activation(h)
         out, h_last = mamba2_forward(lp, rmsnorm(h, lp.ln, cfg.norm_eps),
                                      chunk=cfg.ssm_chunk, use_kernel=cfg.use_ssd_kernel)
         h = h + out
@@ -97,7 +103,7 @@ def ssm_prefill(params, cfg, batch, cache_len):
 def ssm_decode_step(params, cfg, state: SSMState, tokens):
     """tokens: (B,) int. One decode step. Returns (logits, new state); the
     caches are updated in place."""
-    h = embed_lookup(params.embed, tokens)
+    h = shard_activation(embed_lookup(params.embed, tokens))
     c = state.caches
     for i, lp in enumerate(params.layers):
         out, _ = mamba2_decode(lp, rmsnorm(h, lp.ln, cfg.norm_eps),
@@ -117,7 +123,8 @@ def _positions(tokens):
 
 def hybrid_loss(params, cfg, batch):
     tokens = batch["tokens"]
-    h = zamba2_forward(params, cfg, embed_lookup(params.embed, tokens), _positions(tokens))
+    h = shard_activation(embed_lookup(params.embed, tokens))
+    h = zamba2_forward(params, cfg, h, _positions(tokens))
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
@@ -131,7 +138,8 @@ def hybrid_prefill(params, cfg, batch, cache_len):
     (``zamba2_init_state``), so the decode steps after it do not see the
     prompt."""
     tokens = batch["tokens"]
-    h = zamba2_forward(params, cfg, embed_lookup(params.embed, tokens), _positions(tokens))
+    h = shard_activation(embed_lookup(params.embed, tokens))
+    h = zamba2_forward(params, cfg, h, _positions(tokens))
     h = rmsnorm(h[:, -1], params.final_norm, cfg.norm_eps)
     state = zamba2_init_state(cfg, tokens.shape[0], cache_len, cfg.dtype, tokens.device)
     return _lm_logits(params, cfg, h), state
@@ -140,7 +148,8 @@ def hybrid_prefill(params, cfg, batch, cache_len):
 def hybrid_decode_step(params, cfg, state: HybridState, tokens):
     """tokens: (B,) int. One decode step. Returns (logits, new state); the
     caches are updated in place."""
-    h, state = zamba2_decode_step(params, cfg, state, embed_lookup(params.embed, tokens))
+    h = shard_activation(embed_lookup(params.embed, tokens))
+    h, state = zamba2_decode_step(params, cfg, state, h)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     return _lm_logits(params, cfg, h), state
 
@@ -151,6 +160,10 @@ def hybrid_decode_step(params, cfg, state: HybridState, tokens):
 def model_class(cfg) -> type[nn.Module]:
     """The module class that holds ``cfg.family``'s parameters."""
     return {"ssm": SSM, "hybrid": Zamba2}.get(cfg.family, Transformer)
+
+
+#: the model's attributes that hold one module per layer
+STACKED = ("layers", "mamba_layers")
 
 
 class Model:
@@ -168,6 +181,21 @@ class Model:
         if f == "hybrid":
             return zamba2_init(gen, self.cfg, device)
         return transformer_init(gen, self.cfg, device)
+
+    @staticmethod
+    def logical_axes(params: nn.Module) -> dict[str, tuple]:
+        """``{parameter name: logical axes}`` of any module of the port, for
+        ``distributed.shard_params``: the reference's twin ``axes`` tree
+        keyed by the port's names. Each module class declares its own
+        parameters' axes (``AXES``); a layer's tensor has its stacked
+        leaf's axes, which start with ``"layers"``."""
+        out = {}
+        for mod_name, mod in params.named_modules():
+            for attr, _ in mod.named_parameters(recurse=False):
+                name = f"{mod_name}.{attr}" if mod_name else attr
+                axes = type(mod).AXES[attr]
+                out[name] = ("layers", *axes) if name.split(".")[0] in STACKED else axes
+        return out
 
     def loss(self, params, batch):
         """The training loss, differentiable in ``params``' tensors."""

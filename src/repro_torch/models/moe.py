@@ -2,10 +2,14 @@
 experts) with sort-based token dispatch and capacity dropping. Mirror of
 ``repro.models.moe``.
 
-The reference runs the dispatch under ``shard_map`` when a mesh with a
-``model`` axis is active, and unpartitioned otherwise. The port has no mesh
-yet (the distributed layer is ROADMAP Queue 1 item 13), so only the
-unpartitioned branch is here.
+Dispatch runs *locally per data shard* under a mesh with a ``model`` axis
+(``distributed.sharding.shard_map``, the reference's ``shard_map`` on
+``local_map``), so the token sort never becomes a global collective: each
+data shard routes its own tokens at a capacity from its own token count,
+and the only collective is the tensor-parallel sum of the down-projection
+over ``model``, taken after the scatter-back. The aux loss returned is data
+shard 0's, as the reference's unchecked ``out_specs=P()`` keeps one shard's
+value. When no such mesh is active the same function runs unpartitioned.
 
 The expert products are batched matrix products over the experts
 (``torch.bmm``), as the reference leaves them to XLA's ``einsum``: the
@@ -17,11 +21,15 @@ step that calls the dispatch once a layer never waits for the device.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import (batch_axes, current_mesh, current_rules, mesh_shape,
+                                    shard_map, spec_entry)
 from .layers import MLP, _init, mlp_apply
 
 
@@ -30,6 +38,9 @@ class MoE(nn.Module):
     ``up (E, D, F)``, ``down (E, F, D)`` and, with ``shared_d_ff``, one
     ungated ``shared`` SwiGLU MLP: the reference's names, shapes and
     scales."""
+
+    AXES = {"router": ("embed", "experts"), "gate": ("experts", "embed", "mlp"),
+            "up": ("experts", "embed", "mlp"), "down": ("experts", "mlp", "embed")}
 
     def __init__(self, d_model, moe_d_ff, n_experts, dtype, shared_d_ff=0, device=None,
                  generator=None):
@@ -113,14 +124,89 @@ def _dispatch_ffn(p, xt, n_top: int, capacity_factor: float):
     return y, aux
 
 
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over ``group`` forward; the gradient, the same on
+    every rank of the group, passes unchanged (the reference's ``psum``
+    under ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        y = y.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _FirstShard(torch.autograd.Function):
+    """The value of the rank at mesh coordinate 0 on every rank; backward,
+    each rank's gradient divided by ``n``, the ranks whose parts of the
+    router's gradient are added (so the router gets the mean over data
+    shards of their aux's gradients, as under the reference's unchecked
+    ``out_specs=P()``)."""
+
+    @staticmethod
+    def forward(ctx, aux, src, n):
+        ctx.n = n
+        aux = aux.detach().clone()
+        dist.broadcast(aux, src=src)
+        return aux
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def _moe_sharded(p, x, n_top, capacity_factor, mesh):
+    """The reference's ``shard_map`` branch: one dispatch per data shard,
+    the experts' ``F`` split over ``model`` when the rules' ``mlp`` is
+    ``model`` and ``F`` divides."""
+    B = x.shape[0]
+    shape = mesh_shape(mesh)
+    bax = batch_axes(mesh, B)          # () when B doesn't divide -> replicate
+    F_ = p.gate.shape[2]
+    mlp_ax = current_rules().get("mlp")
+    tp = mlp_ax if isinstance(mlp_ax, str) else None
+    if not (tp and tp in shape and F_ % shape[tp] == 0):
+        tp = None
+    n_parts = math.prod(shape[a] for a in bax) * (shape[tp] if tp else 1)
+    src = int(mesh.mesh.flatten()[0])
+    if dist.get_world_size() != mesh.mesh.numel():
+        raise ValueError("moe_apply: the mesh must hold every rank of the process group")
+
+    def body(router, gate, up, down, xl):
+        Bl, Sl, Dl = xl.shape
+        w = SimpleNamespace(router=router, gate=gate, up=up, down=down)
+        yl, aux = _dispatch_ffn(w, xl.reshape(Bl * Sl, Dl), n_top, capacity_factor)
+        if tp is not None:
+            # TP reduction after the scatter-back: the (T, D) output, not the
+            # (E, C, D) dispatch buffer
+            yl = _SumOver.apply(yl, mesh.get_group(tp))
+        return yl.reshape(Bl, Sl, Dl), _FirstShard.apply(aux, src, n_parts)
+
+    xspec = (spec_entry(bax), None, None)
+    by_data, by_model = tuple(bax), (tp,) if tp else ()
+    fn = shard_map(body, mesh,
+                     in_specs=((), (None, None, tp), (None, None, tp), (None, tp, None), xspec),
+                     out_specs=[xspec, ()],
+                     partial_grads=[by_data + by_model, by_data, by_data, by_data, by_model])
+    return fn(p.router, p.gate, p.up, p.down, x)
+
+
 def moe_apply(p, x, *, n_top: int, capacity_factor: float = 1.25):
-    """x: (B, S, D) -> ((B, S, D), aux). The B·S tokens are dispatched
-    together (the reference's unpartitioned branch; its ``shard_map``
-    branch, one dispatch per data shard, waits for the port's distributed
-    layer). The shared experts, if present, are added."""
+    """x: (B, S, D) -> ((B, S, D), aux). Without a mesh the B·S tokens are
+    dispatched together (the reference's unpartitioned branch); under a
+    mesh with a ``model`` axis, per data shard (``_moe_sharded``). The
+    shared experts, if present, are added."""
     B, S, D = x.shape
-    y, aux = _dispatch_ffn(p, x.reshape(B * S, D), n_top, capacity_factor)
-    y = y.reshape(B, S, D)
+    mesh = current_mesh()
+    if mesh is None or "model" not in mesh_shape(mesh):
+        y, aux = _dispatch_ffn(p, x.reshape(B * S, D), n_top, capacity_factor)
+        y = y.reshape(B, S, D)
+    else:
+        y, aux = _moe_sharded(p, x, n_top, capacity_factor, mesh)
     if hasattr(p, "shared"):
         y = y + mlp_apply(p.shared, x)
     return y, aux

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..distributed import shard_activation
 from .attention import (Attention, KVCache, cache_capacity, decode_attn,
                         multihead_attn)
 from .layers import (MLP, _init, embed_init, embed_lookup, mlp_apply, pad_vocab,
@@ -28,6 +29,8 @@ def _head_dim(cfg):
 class Block(nn.Module):
     """``ln1``, ``attn``, ``ln2`` and either ``moe`` (``cfg.n_experts``) or
     ``mlp``."""
+
+    AXES = {"ln1": ("norm",), "ln2": ("norm",)}
 
     def __init__(self, cfg, dtype, device=None, generator=None):
         super().__init__()
@@ -71,6 +74,8 @@ class Transformer(nn.Module):
     the embeddings are tied, ``head (D, Vpad)``. ``generator=None`` leaves
     the weights uninitialised (they are about to be loaded)."""
 
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("norm",), "head": ("embed", "vocab")}
+
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
         dtype = cfg.dtype
@@ -95,6 +100,7 @@ def _scan_layers(params, cfg, h, positions):
     Returns (h, the blocks' MoE aux losses summed; 0.0 for dense blocks)."""
     aux = 0.0
     for lp in params.layers:
+        h = shard_activation(h)     # anchor: batch over data axes
         h, a = remat(cfg.remat, block_apply, lp, h, cfg, positions)
         aux = aux + a
     return h, aux
@@ -122,7 +128,7 @@ def transformer_loss(params, cfg, batch):
     ignored), a 0-d fp32 tensor; for the VLM only over the text positions
     after the vision prefix; for MoE plus ``moe_aux_weight`` times the
     blocks' mean load-balancing loss."""
-    h = _embed_inputs(params, cfg, batch)
+    h = shard_activation(_embed_inputs(params, cfg, batch))
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device).expand(B, S)
     h, aux = _scan_layers(params, cfg, h, positions)
@@ -156,7 +162,7 @@ def transformer_prefill(params, cfg, batch, cache_len):
     """Run the prompt, fill the KV cache. Returns (last logits, DecodeState).
     Each layer's K/V come from its attention call; the last ``cap``
     positions are written to the cache (rolling for SWA)."""
-    h = _embed_inputs(params, cfg, batch)
+    h = shard_activation(_embed_inputs(params, cfg, batch))
     B, S, _ = h.shape
     device = h.device
     positions = torch.arange(S, device=device).expand(B, S)
@@ -166,6 +172,7 @@ def transformer_prefill(params, cfg, batch, cache_len):
     slot0 = (S - take) % cap if cfg.sliding_window else 0
     slots = (torch.arange(take, device=device) + slot0) % cap
     for i, lp in enumerate(params.layers):
+        h = shard_activation(h)
         h, _, (k, v) = block_apply(lp, h, cfg, positions, return_kv=True)
         caches.k[i][:, slots] = k[:, S - take:]
         caches.v[i][:, slots] = v[:, S - take:]
@@ -178,7 +185,7 @@ def transformer_prefill(params, cfg, batch, cache_len):
 def transformer_decode_step(params, cfg, state: DecodeState, tokens):
     """tokens: (B,) int. One decode step. Returns (logits, new state); the
     caches are updated in place."""
-    h = embed_lookup(params.embed, tokens)                       # (B, D)
+    h = shard_activation(embed_lookup(params.embed, tokens))     # (B, D)
     pos, c = state.pos, state.caches
     for i, lp in enumerate(params.layers):
         a, _ = decode_attn(lp.attn, rmsnorm(h, lp.ln1, cfg.norm_eps),

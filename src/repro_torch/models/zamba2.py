@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..distributed import shard_activation
 from .attention import Attention, KVCache, cache_capacity, decode_attn, multihead_attn
 from .layers import MLP, _init, embed_init, mlp_apply, pad_vocab, remat, rmsnorm, rmsnorm_init
 from .mamba2 import MambaCache, SSMLayer, mamba2_decode, ssm_layer
@@ -41,6 +42,8 @@ class SharedBlock(Attention):
     """``ln1 (2D,)``, ``q (2D,H,hd)``, ``k``/``v`` ``(2D,KV,hd)``,
     ``o (H,hd,D)``, ``ln2 (D,)`` and ``mlp``: the reference's ``shared``
     dict, its attention weights at the top level as there."""
+
+    AXES = {**Attention.AXES, "ln1": ("norm",), "ln2": ("norm",)}
 
     def __init__(self, cfg, device=None, generator=None):
         D, H = cfg.d_model, cfg.n_heads
@@ -73,6 +76,8 @@ class Zamba2(nn.Module):
     ``generator=None`` leaves the drawn weights uninitialised (they are
     about to be loaded)."""
 
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("norm",), "head": ("embed", "vocab")}
+
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
         vpad = pad_vocab(cfg.vocab_size)
@@ -94,10 +99,12 @@ def zamba2_init(generator, cfg, device=None) -> Zamba2:
 def zamba2_forward(params, cfg, h, positions):
     """h: (B, S, D) embedded tokens -> (B, S, D). S must be a multiple of
     ``cfg.ssm_chunk``."""
+    h = shard_activation(h)
     h0 = h
     for lo, hi in _segments(cfg):
         h = _shared_attn_full(params.shared, h, h0, cfg, positions)
         for lp in params.mamba_layers[lo:hi]:
+            h = shard_activation(h)
             h = remat(cfg.remat, ssm_layer, lp, h, cfg)
     return h
 

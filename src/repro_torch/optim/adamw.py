@@ -7,6 +7,13 @@ Trees are dicts of tensors keyed by the model's ``state_dict`` names. The
 moments ``m`` and ``v`` are fp32 for every parameter, bf16 ones included;
 ``count`` is a 0-d int32 tensor on the parameters' device, so the schedule
 and the bias correction never wait for the host.
+
+The parameters may be DTensors (``distributed.place``). The moments then
+follow the parameters' placements, as the reference's state follows the
+parameters' logical sharding; each gradient is laid out like its parameter,
+the update runs on each rank's shard, and ``global_norm`` adds every
+shard's squares (a ``Partial`` sum, all-reduced), so clipping uses the norm
+of the whole tree.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclass(frozen=True)
@@ -37,7 +45,7 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params: dict) -> AdamWState:
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
              for k, p in params.items()}
     device = next(iter(params.values())).device
     return AdamWState(m=zeros, v={k: torch.zeros_like(z) for k, z in zeros.items()},
@@ -57,7 +65,26 @@ def schedule(cfg: AdamWConfig, step):
 
 
 def global_norm(tree: dict):
-    return torch.sqrt(sum(t.float().square().sum() for t in tree.values()))
+    """The 2-norm of every tensor of ``tree`` together, a 0-d fp32 tensor. A
+    DTensor's sum of squares is a ``Partial`` sum; those with one layout
+    are added first, then each is all-reduced once."""
+    sums: dict = {}
+    for t in tree.values():
+        sq = t.float().square().sum()
+        key = (sq.device_mesh, tuple(sq.placements)) if isinstance(sq, DTensor) else None
+        sums[key] = sums[key] + sq if key in sums else sq
+    return torch.sqrt(sum(s.full_tensor() if isinstance(s, DTensor) else s
+                          for s in sums.values()))
+
+
+def _local(p, g, m, v):
+    """This rank's shards of a DTensor parameter, its gradient (laid out
+    like the parameter first) and its moments; plain tensors as they are."""
+    if not isinstance(p, DTensor):
+        return p, g, m, v
+    if tuple(g.placements) != tuple(p.placements):
+        g = g.redistribute(p.device_mesh, p.placements)
+    return p.to_local(), g.to_local(), m.to_local(), v.to_local()
 
 
 @torch.no_grad()
@@ -76,9 +103,9 @@ def adamw_update(grads: dict, params: dict, state: AdamWState, cfg: AdamWConfig)
     lr = schedule(cfg, count)
     b1c = 1 - cfg.b1 ** count.float()
     b2c = 1 - cfg.b2 ** count.float()
-    for k, p in params.items():
-        g = grads[k].float() * scale
-        m, v = state.m[k], state.v[k]
+    for k in params:
+        p, g, m, v = _local(params[k], grads[k], state.m[k], state.v[k])
+        g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
         p32 = p.float()

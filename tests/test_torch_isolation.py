@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PROBE = r"""
 import importlib, json, pkgutil, sys
 import repro_torch
-mods = ["repro_torch.launch.serve", "repro_torch.launch.train", "chip_smoke"] + [
+mods = ["repro_torch.launch.serve", "repro_torch.launch.train", "chip_smoke",
+        "probe_two_ranks_one_card"] + [
     m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
@@ -31,7 +32,8 @@ print(json.dumps({"imported": mods, "bad": bad}))
 def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        [str(ROOT / "src"), str(ROOT), str(ROOT / "scripts")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
@@ -41,9 +43,29 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     assert "repro_torch.kernels.ssd_scan.ops" in out["imported"]
     for mod in ("launch.train", "optim.adamw", "checkpoint.manager", "checkpoint.serializer",
                 "data.pipeline", "convert", "models.zamba2", "models.moe", "lint", "trace",
-                "compare"):
+                "compare", "distributed.sharding", "optim.compression", "launch.mesh",
+                "launch.cluster"):
         assert f"repro_torch.{mod}" in out["imported"]
     assert out["bad"] == []
+
+
+# the distributed layer's files and the two-rank probe import inside their
+# functions too: no import anywhere in them may name jax or repro
+DISTRIBUTED_FILES = ["src/repro_torch/distributed/sharding.py",
+                     "src/repro_torch/optim/compression.py", "src/repro_torch/launch/mesh.py",
+                     "src/repro_torch/launch/cluster.py", "scripts/probe_two_ranks_one_card.py"]
+
+
+@pytest.mark.parametrize("path", DISTRIBUTED_FILES)
+def test_distributed_layer_names_no_jax_and_no_repro(path):
+    names = []
+    for node in ast.walk(ast.parse((ROOT / path).read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    assert names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
 
 
 # The port's scripts import the package inside main(), after their CUDA check,
