@@ -75,7 +75,19 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      unsharded layer (output, aux, gradients); ``compressed_grads`` over the
      tinyllama gradient tree (time, and its error against the exact mean,
      at world 1 the int8 round trip);
- 11. one JSON line of train numbers, one of kernel numbers, then the result
+ 11. the port's dry-run (``repro_torch.launch.dryrun``) against the card,
+     in processes of their own (its faked process group must not meet
+     phase 10's NCCL group): the steps of phases 7, 9 and 5 (tinyllama-1.1b
+     and zamba2-1.2b train, a tinyllama-1.1b prefill wave; bf16, 4 x 1024
+     tokens) traced on ``meta`` at world 1, each predicted peak (argument
+     + temp, less the plain attention's score matrices, which the kernel
+     routes do not hold) against the phase's measured peak within 25%; the
+     traced flops of the tinyllama step over phase 7's step time, as a
+     share of the bf16 peak; the production dry-run of tinyllama-1.1b on the
+     faked 16x16 mesh (``python -m repro_torch.launch.dryrun``, its three
+     cells ok); the examples ``examples/torch/serve_batched.py`` and
+     ``train_with_io_aware_checkpointing.py`` on the card;
+ 12. one JSON line of train numbers, one of kernel numbers, then the result
      line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -85,6 +97,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -598,7 +611,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
     """One main path: ``serve`` (``SERVE``'s traffic, ``override`` on it)
     with every launch count set to 0 just before and read just after.
     Checks every logits tensor, the completions and the trace; returns the
-    launch counts."""
+    launch counts and the peak of allocated device memory (bytes)."""
     kw = {**SERVE, **override}
     trace = ROOT / "build" / "chip_smoke" / f"serve_trace_{cfg.name}.jsonl"
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -643,7 +656,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
            for c in out["completions"]):
         raise AssertionError("a completion has the wrong length or a token "
                              "outside the vocabulary")
-    return launches
+    return launches, peak
 
 
 def vlm_path(torch, np, Model, cfg, kernels):
@@ -1235,6 +1248,88 @@ def distributed_phase(torch, np, get_config, kernels):
     return nums, launches
 
 
+# phase 11: the dry-run's steps, as cells of (batch, tokens), at world 1:
+# phase 7's and 9's train steps and a prefill wave of phase 5
+DRYRUN_STEPS = [("tinyllama-1.1b", "train"), ("zamba2-1.2b", "train"),
+                ("tinyllama-1.1b", "prefill")]
+DRYRUN_CELL = (4, 1024)
+# each predicted peak, less the plain attention's score matrices (the card
+# runs the kernels: only their backward's recompute makes them, one layer
+# at a time), against the measured peak
+MEMORY_RTOL = 0.25
+DRYRUN_TIMEOUT = 600
+DRYRUN_WORLD1 = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import fake_mesh, trace_cell
+steps, (B, S) = json.loads(sys.argv[1])
+mesh = fake_mesh((1, 1), ("data", "model"))
+print(json.dumps({f"{arch}/{kind}": trace_cell(get_config(arch), ShapeCell(kind, S, B, kind),
+                                               mesh)
+                  for arch, kind in steps}))
+"""
+
+
+def _run(args, what):
+    """A process of its own, from the checkout's root with ``src`` on its
+    path; fails if it does not exit 0. Returns its output."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                               else []))}
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=DRYRUN_TIMEOUT)
+    print(f"[{what}] exit {res.returncode} in {time.monotonic() - t0:.1f} s")
+    if res.returncode:
+        raise AssertionError(f"{what} failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def dryrun_phase(measured, step_s):
+    """Phase 11: the dry-run's predictions against the card, the production
+    dry-run on the card's host, the examples on the card. ``measured``:
+    ``{arch/kind: peak bytes}`` from phases 5, 7 and 9; ``step_s``: phase
+    7's step time. Returns its numbers."""
+    recs = json.loads(_run(["-c", DRYRUN_WORLD1, json.dumps([DRYRUN_STEPS, DRYRUN_CELL])],
+                           "dryrun world 1").splitlines()[-1])
+    nums = {"cell": DRYRUN_CELL, "steps": {}}
+    for key, rec in recs.items():
+        mem = rec["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        scores = mem["attention_scores_at_peak_in_bytes"]
+        rel = (predicted - scores) / measured[key] - 1
+        nums["steps"][key] = {"predicted_bytes": predicted, "scores_bytes": scores,
+                              "measured_bytes": measured[key], "rel": rel,
+                              "flops": rec["flops"], "trace_s": rec["trace_s"]}
+        print(f"[dryrun] {key} {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]}: predicted peak "
+              f"{predicted / 2**30:.3f} GiB (arguments {mem['argument_size_in_bytes'] / 2**30:.3f}"
+              f" + temp {mem['temp_size_in_bytes'] / 2**30:.3f}), of it the plain attention's "
+              f"score matrices {scores / 2**30:.3f} GiB; without them "
+              f"{(predicted - scores) / 2**30:.3f} GiB against {measured[key] / 2**30:.3f} GiB "
+              f"measured ({rel:+.1%}); traced in {rec['trace_s']} s")
+        if abs(rel) > MEMORY_RTOL:
+            raise AssertionError(f"{key}: predicted peak off by {rel:+.1%}")
+    flops = recs["tinyllama-1.1b/train"]["flops"]
+    nums["train_flops_share"] = flops / step_s / PEAK_FLOPS["bfloat16"]
+    print(f"[dryrun] tinyllama-1.1b train step: {flops:.4e} flops traced over {step_s:.4f} s "
+          f"measured = {flops / step_s / 1e12:.2f} TFLOP/s, "
+          f"{nums['train_flops_share']:.1%} of the bf16 dense peak")
+    out = _run(["-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b", "--mesh",
+                "single", "--force"], "dryrun 16x16")
+    print(out.strip())
+    rows = {line.split()[1]: line.split()[3] for line in out.splitlines()
+            if line.startswith("tinyllama-1.1b")}
+    if rows != {"train_4k": "ok", "prefill_32k": "ok", "decode_32k": "ok",
+                "long_500k": "skipped"}:
+        raise AssertionError(f"the production dry-run gave {rows}")
+    nums["production"] = rows
+    for ex in ("serve_batched", "train_with_io_aware_checkpointing"):
+        out = _run([str(ROOT / "examples" / "torch" / f"{ex}.py")], f"example {ex}")
+        print(out.strip())
+    return nums
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1338,10 +1433,10 @@ def main() -> int:
 
     # 5. the main paths: each kernel's launches on each serving path
     waves = -(-SERVE["n_requests"] // SERVE["batch"])
-    serve_launches = {}
+    serve_launches, serve_peaks = {}, {}
     for arch, (flags, per_pass) in archs.items():
         cfg = get_config(arch).replace(**{f: True for f in flags})
-        got = serve_path(torch, serve_mod, Model, cfg, kernels)
+        got, serve_peaks[arch] = serve_path(torch, serve_mod, Model, cfg, kernels)
         expect = {k: waves * n for k, n in per_pass.items()}
         if got != expect:
             raise AssertionError(f"{arch} serve launched {got}, expected {expect}")
@@ -1352,7 +1447,7 @@ def main() -> int:
     mixtral = get_config("mixtral-8x22b").replace(
         use_flash=True, n_layers=CUT_LAYERS["mixtral-8x22b"]["serve"])
     for cfg, kw in ((qwen, {}), (mixtral, MIXTRAL_SERVE)):
-        got = serve_path(torch, serve_mod, Model, cfg, kernels, **kw)
+        got, _ = serve_path(torch, serve_mod, Model, cfg, kernels, **kw)
         n_waves = -(-kw.get("n_requests", SERVE["n_requests"]) // SERVE["batch"])
         expect = {K1: n_waves * cfg.n_layers, K2: 0}
         if got != expect:
@@ -1407,9 +1502,15 @@ def main() -> int:
     # 10. the distributed layer over NCCL at world size 1
     dist_nums, sharded_launches = distributed_phase(torch, np, get_config, kernels)
 
-    # 11. train numbers, kernel numbers, then the result line
+    # 11. the dry-run against the card, its production run, the examples
+    measured = {"tinyllama-1.1b/train": train_nums[dense.name]["io_aware"]["peak_gib"] * 2**30,
+                "zamba2-1.2b/train": train_nums[hybrid.name]["peak_gib"] * 2**30,
+                "tinyllama-1.1b/prefill": serve_peaks["tinyllama-1.1b"]}
+    dryrun_nums = dryrun_phase(measured, train_nums[dense.name]["io_aware"]["step_s"])
+
+    # 12. train numbers, kernel numbers, then the result line
     print(json.dumps({"train": train_nums, "families": family_nums,
-                      "distributed": dist_nums}))
+                      "distributed": dist_nums, "dryrun": dryrun_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),

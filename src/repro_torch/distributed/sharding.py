@@ -246,6 +246,70 @@ def place(params: nn.Module, shardings: dict) -> nn.Module:
     return params
 
 
+def map_state(fn, tree, axes_tree):
+    """``fn(tensor, its logical axes)`` over a decode state: a tree of
+    NamedTuples whose leaves are tensors, and ``axes_tree`` its twin of
+    axes tuples. A leaf that is not a tensor (``pos``) is kept as it is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, axes_tree)
+    if isinstance(tree, tuple):
+        return type(tree)(*(map_state(fn, t, a) for t, a in zip(tree, axes_tree)))
+    return tree
+
+
+def place_state(tree, axes_tree, mesh=None, rules=None):
+    """A decode state laid out by its logical axes under the current mesh
+    (the reference's ``device_put`` onto ``tree_shardings`` of
+    ``decode_state_axes``); without a mesh, as it is."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return tree
+    return map_state(lambda t, ax: place_tensor(t, logical_to_sharding(t.shape, ax, mesh, rules)),
+                     tree, axes_tree)
+
+
+def spec_of(x) -> tuple:
+    """The spec (one entry per tensor dimension) of a DTensor's placements:
+    the inverse of ``placements_for``. A plain tensor's is all ``None``."""
+    parts: list = [None] * x.dim()
+    if isinstance(x, DTensor):
+        for name, p in zip(x.device_mesh.mesh_dim_names, x.placements):
+            if isinstance(p, Shard):
+                parts[p.dim] = entry_axes(parts[p.dim]) + (name,)
+    return tuple(spec_entry(entry_axes(e)) for e in parts)
+
+
+@torch.no_grad()
+def assign(dst, index: tuple, src):
+    """``dst[index] = src`` in place. On a DTensor ``dst`` each rank writes its
+    own shard: ``index`` holds integers, slices and index tensors, and may
+    only pick along dimensions that ``dst`` keeps whole (a sharded one takes
+    ``slice(None)``); ``src`` is laid out like ``dst[index]`` first.
+    (DTensor's rule for an indexed write, ``index_put_``, fails in torch
+    2.11.)"""
+    if not isinstance(dst, DTensor):
+        dst[index] = src
+        return
+    mesh = dst.device_mesh
+    index = tuple(index) + (slice(None),) * (dst.dim() - len(index))
+    # where each kept dimension of dst lands in dst[index]
+    kept = {d: n for n, d in enumerate(d for d, i in enumerate(index) if not isinstance(i, int))}
+    placements = []
+    for p in dst.placements:
+        if isinstance(p, Shard):
+            if not (isinstance(index[p.dim], slice) and index[p.dim] == slice(None)):
+                raise ValueError(f"assign: dimension {p.dim} is sharded, index {index}")
+            placements.append(Shard(kept[p.dim]))
+        else:
+            placements.append(Replicate())
+    if not isinstance(src, DTensor):
+        src = DTensor.from_local(torch.as_tensor(src, dtype=dst.dtype, device=dst.device),
+                                 mesh, [Replicate()] * mesh.ndim, run_check=False)
+    if tuple(src.placements) != tuple(placements):
+        src = src.redistribute(mesh, placements)
+    dst.to_local()[index] = src.to_local()
+
+
 def full(t: torch.Tensor) -> torch.Tensor:
     """The whole tensor of a DTensor (every rank must call it); a plain
     tensor as it is."""
@@ -305,6 +369,58 @@ def unshard_dim(x, dim: int):
     return x.redistribute(x.device_mesh, placements)
 
 
+def fsdp_gather(w):
+    """A weight stored sharded over the mesh axes the batch splits over
+    (FSDP), all-gathered over them for its product, its tensor-parallel
+    split kept: what the reference's SPMD program does one layer at a time.
+    (Left to itself, DTensor splits the product's contraction over those
+    axes instead, and each rank multiplies every token of the batch.) Its
+    gradient comes back reduce-scattered. A plain tensor as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    bax = set(batch_axes(mesh))
+    placements = tuple(Replicate() if name in bax else p
+                       for name, p in zip(mesh.mesh_dim_names, w.placements))
+    if placements == tuple(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
+
+
+def _contract(x, w, n: int):
+    """x (..., K1..Kn) @ w (K1..Kn, ...) -> (..., w.shape[n:])."""
+    if n == 1 and w.dim() == 2:
+        return x @ w            # w may be a transposed view: no copy of it
+    lead = x.shape[:x.dim() - n]
+    y = x.reshape(*lead, -1) @ w.reshape(w.shape[:n].numel(), -1)
+    return y.reshape(*lead, *w.shape[n:])
+
+
+def linear(x, w, n: int = 1):
+    """The product of ``x``'s last ``n`` dimensions with ``w``'s first ``n``:
+    ``(..., K1..Kn) x (K1..Kn, ...) -> (..., w.shape[n:])`` (``n = 1`` is
+    ``x @ w``). Under a mesh it runs on each rank's shards: the weight
+    gathered over the batch's axes (``fsdp_gather``), its tensor-parallel
+    split kept; ``x`` split over the batch on its first dimension and like
+    ``w`` on the contracted ones. The output is split like ``w``'s other
+    dimensions, and a partial sum where ``w``'s contracted ones are split
+    (row parallel). (DTensor's own rule for a matrix product picks among
+    every layout of a 2- or 3-D mesh, minutes of planning on the 2x16x16
+    one.)"""
+    if not isinstance(w, DTensor) and not isinstance(x, DTensor):
+        return _contract(x, w, n)
+    w = fsdp_gather(w)
+    mesh = w.device_mesh
+    ws = spec_of(w)
+    bax = batch_axes(mesh, x.shape[0])
+    lead = (spec_entry(bax),) + (None,) * (x.dim() - n - 1)
+    contracted = tuple(a for e in ws[:n] for a in entry_axes(e))
+    kept = tuple(a for e in ws[n:] for a in entry_axes(e))
+    fn = shard_map(lambda x, w: _contract(x, w, n), mesh, (lead + ws[:n], ws),
+                   lead + ws[n:], partial_grads=[kept, bax], out_partial=contracted)
+    return fn(x, w)
+
+
 def _gather_last(x, index):
     return torch.gather(x, -1, index[..., None])[..., 0]
 
@@ -342,7 +458,7 @@ def _on_contiguous_grads(fn):
     return local
 
 
-def shard_map(fn, mesh, in_specs, out_specs, partial_grads=None):
+def shard_map(fn, mesh, in_specs, out_specs, partial_grads=None, out_partial=()):
     """The reference's ``shard_map`` on ``local_map``: ``fn`` runs on each
     rank's shards of its tensor arguments, laid out by ``in_specs`` (each
     DTensor is redistributed onto its spec), and its outputs are put
@@ -355,7 +471,8 @@ def shard_map(fn, mesh, in_specs, out_specs, partial_grads=None):
     replicated but each rank's gradient is only its part of the whole (the
     rank saw other tokens, or other heads): ``Partial`` in
     ``in_grad_placements``, so the parts are added. Over any other axis the
-    ranks compute the same gradient. Differentiable."""
+    ranks compute the same gradient. ``out_partial`` names the mesh axes
+    over which the (one) output is each rank's part of a sum. Differentiable."""
     names = list(mesh_shape(mesh))
     in_pl = tuple(placements_for(spec, mesh) for spec in in_specs)
     grad_pl = tuple(partial_over(pl, {names.index(n) for n in pg})
@@ -364,7 +481,8 @@ def shard_map(fn, mesh, in_specs, out_specs, partial_grads=None):
     # one output's placements as a list: local_map reads a tuple as one
     # placement list per output
     out_pl = (tuple(placements_for(spec, mesh) for spec in out_specs) if many
-              else list(placements_for(out_specs, mesh)))
+              else list(partial_over(placements_for(out_specs, mesh),
+                                     {names.index(n) for n in out_partial})))
     mapped = local_map(_on_contiguous_grads(fn), out_placements=out_pl, in_placements=in_pl,
                        in_grad_placements=grad_pl, device_mesh=mesh, redistribute_inputs=True)
     replicated = [Replicate()] * len(names)
@@ -389,12 +507,36 @@ def entry_axes(entry) -> tuple:
 def attention_specs(q_shape, kv_shape, mesh) -> tuple[tuple, tuple]:
     """Specs of ``q (B,S,H,hd)`` and ``k``/``v (B,S,KV,hd)`` for attention on
     each rank's shard: the batch over the batch rule, and the heads over the
-    heads rule only where ``H`` and ``KV`` split over the same mesh axes (so
-    each rank holds whole GQA groups); otherwise the heads are whole."""
+    heads rule. Where ``KV`` does not split as ``H`` does (the ``model``
+    axis exceeds the KV heads), the query heads still split if each rank's
+    block of them lies within one GQA group or covers whole groups; K and V
+    are whole then, and each rank reads the KV heads of its query heads
+    (``kv_heads_of_rank``). Otherwise the heads are whole."""
     sq = tuple(spec_for(q_shape, ("batch", None, "heads", None), mesh)) + (None,) * 4
     sk = tuple(spec_for(kv_shape, ("batch", None, "kv_heads", None), mesh)) + (None,) * 4
-    heads = sq[2] if sq[2] == sk[2] else None
-    return (sq[0], None, heads, None), (sk[0], None, heads, None)
+    qh, kh = sq[2], sk[2]
+    if qh != kh:
+        n = q_shape[2] // _axis_size(mesh_shape(mesh), qh)      # query heads a rank
+        G = q_shape[2] // kv_shape[2]
+        if qh is None or kh is not None or (G % n and n % G):
+            qh = kh = None
+    return (sq[0], None, qh, None), (sk[0], None, kh, None)
+
+
+def kv_heads_of_rank(q_entry, kv_entry, H: int, KV: int, mesh) -> slice:
+    """The KV heads that this rank's query heads read where the query heads
+    split over mesh axes (``q_entry``) and the KV heads are whole
+    (``attention_specs``); all of them (``slice(None)``) where the two split
+    alike."""
+    if q_entry == kv_entry:
+        return slice(None)
+    names = list(mesh.mesh_dim_names)
+    coord, parts = 0, 1
+    for a in entry_axes(q_entry):
+        coord = coord * mesh.size(names.index(a)) + mesh.get_local_rank(a)
+        parts *= mesh.size(names.index(a))
+    n, G = H // parts, H // KV
+    return slice(coord * n // G, coord * n // G + max(1, n // G))
 
 
 def unshard_unless_divides(x, dim: int, n: int):

@@ -9,6 +9,7 @@ mask with -1e9; the kernel and its plain version mask with -1e30.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -16,7 +17,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from ..distributed.sharding import attention_specs, shard_map, unshard_unless_divides
+from ..distributed.sharding import (attention_specs, entry_axes, kv_heads_of_rank, linear,
+                                    shard_map, spec_of)
 from ..kernels.flash_attention import ops as flash_ops
 from .layers import _init, apply_rope
 
@@ -48,9 +50,7 @@ def attn_init(generator, d_model, n_heads, n_kv, head_dim, dtype,
 
 def _project(x, w):
     """x (..., D) @ w (D, N, hd) -> (..., N, hd), contiguous."""
-    D, N, hd = w.shape
-    y = unshard_unless_divides(x @ w.reshape(D, N * hd), -1, N)
-    return y.reshape(*x.shape[:-1], N, hd)
+    return linear(x, w)
 
 
 def _mask(q_pos, k_pos, causal: bool, window: int):
@@ -117,13 +117,19 @@ def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
         return _dense_attn(q, k, v, positions, causal, window)
 
     if isinstance(q, DTensor):
-        # under a mesh: on each rank's batch (and whole GQA groups of heads),
-        # as XLA partitions the reference; the kernel needs local tensors
-        sq, skv = attention_specs(q.shape, k.shape, q.device_mesh)
-        attend = shard_map(attend, q.device_mesh, (sq, skv, skv, sq[:1]), sq)
-    o = attend(q, k, v, positions)
-    H, hd, D_out = p.o.shape
-    out = o.reshape(B, S, H * hd) @ p.o.reshape(H * hd, D_out)
+        # under a mesh: on each rank's batch and heads, as XLA partitions the
+        # reference; the kernel needs local tensors
+        mesh = q.device_mesh
+        sq, skv = attention_specs(q.shape, k.shape, mesh)
+        heads = kv_heads_of_rank(sq[2], skv[2], q.shape[2], k.shape[2], mesh)
+        local, grads = attend, None
+        if heads != slice(None):
+            # K and V whole, each rank's part of their gradient its heads'
+            def local(q, k, v, positions, whole=attend):
+                return whole(q, k[:, :, heads], v[:, :, heads], positions)
+            grads = [(), entry_axes(sq[2]), entry_axes(sq[2]), ()]
+        attend = shard_map(local, mesh, (sq, skv, skv, sq[:1]), sq, partial_grads=grads)
+    out = linear(attend(q, k, v, positions), p.o, 2)
     return (out, (k, v)) if return_kv else out
 
 
@@ -144,8 +150,39 @@ class KVCache(NamedTuple):
         )
 
 
+#: the logical axes of a stack of caches (L, ...), the reference's
+#: ``decode_state_axes`` leaves
+KV_CACHE_AXES = KVCache(k=("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+                        v=("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
+                        slot_pos=("layers", "kv_seq"))
+
+
 def cache_capacity(seq_len: int, window: int) -> int:
     return min(seq_len, window) if window else seq_len
+
+
+def _decode_attend(q, k, v, ck, cv, slot_pos, pos: int, window: int, heads=slice(None)):
+    """q (B,H,hd), k/v (B,KV,hd) of the token at ``pos``: k and v written
+    into the caches ``ck``/``cv`` (B,C,KV,hd) and ``slot_pos`` (C,) in place,
+    then q attends over the KV heads ``heads`` of them. Returns (B, H, hd)."""
+    B, H, hd = q.shape
+    C = ck.shape[1]
+    slot = pos % max(C, 1) if window else pos
+    kv_slot = min(max(slot, 0), C - 1)
+    ck[:, kv_slot] = k
+    cv[:, kv_slot] = v
+    if 0 <= slot < C:
+        slot_pos[slot] = pos
+    ck, cv = ck[:, :, heads], cv[:, :, heads]
+    KV = ck.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd)
+    scores = torch.einsum("bkgh,bckh->bkgc", qg, ck) / math.sqrt(hd)
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        valid = valid & (slot_pos > pos - window)
+    scores = torch.where(valid[None, None, None, :], scores.float(), -1e9)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgc,bckh->bkgh", w, cv).reshape(B, H, hd)
 
 
 def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
@@ -156,28 +193,28 @@ def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
     saves a copy of the whole cache per layer and step. With no window and
     ``pos >= C`` the reference's ``dynamic_update_slice`` clamps the K/V
     write to slot ``C-1`` while its ``slot_pos`` scatter drops the write;
-    both are kept here."""
+    both are kept here.
+
+    Under a mesh the writes and the attention run on each rank's shards of
+    the cache, as it is laid out (``decode_state_axes``): its batch and,
+    where the KV heads are split, whole GQA groups of query heads; where
+    they are whole, a rank's query heads may still split and read their own
+    KV heads (``attention_specs``)."""
     B = x.shape[0]
-    H, hd = p.q.shape[1], p.q.shape[2]
-    KV = p.k.shape[1]
-    C = cache.k.shape[1]
     pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(_project(x, p.q)[:, None], pos_b, rope_theta)[:, 0]
     k = apply_rope(_project(x, p.k)[:, None], pos_b, rope_theta)[:, 0]
     v = _project(x, p.v)
-    slot = pos % max(C, 1) if window else pos
-    kv_slot = min(max(slot, 0), C - 1)
-    cache.k[:, kv_slot] = k
-    cache.v[:, kv_slot] = v
-    if 0 <= slot < C:
-        cache.slot_pos[slot] = pos
-    npos = cache.slot_pos
-    qg = q.reshape(B, KV, H // KV, hd)
-    scores = torch.einsum("bkgh,bckh->bkgc", qg, cache.k) / math.sqrt(hd)
-    valid = (npos >= 0) & (npos <= pos)
-    if window:
-        valid = valid & (npos > pos - window)
-    scores = torch.where(valid[None, None, None, :], scores.float(), -1e9)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bkgc,bckh->bkgh", w, cache.v).reshape(B, H * hd)
-    return o @ p.o.reshape(H * hd, p.o.shape[-1]), cache
+
+    attend = functools.partial(_decode_attend, pos=pos, window=window)
+    if any(isinstance(t, DTensor) for t in (q, *cache)):
+        mesh = next(t.device_mesh for t in (q, *cache) if isinstance(t, DTensor))
+        bax, _, hax, _ = spec_of(cache.k)
+        H, hd = q.shape[1:]
+        sq, skv = attention_specs((B, 1, H, hd), cache.k.shape, mesh)
+        qh = sq[2] if skv[2] == hax else hax
+        attend = shard_map(
+            functools.partial(attend, heads=kv_heads_of_rank(qh, hax, H, cache.k.shape[2], mesh)),
+            mesh, ((bax, qh), (bax, hax), (bax, hax), spec_of(cache.k), spec_of(cache.v),
+                   spec_of(cache.slot_pos)), (bax, qh))
+    return linear(attend(q, k, v, *cache), p.o, 2), cache

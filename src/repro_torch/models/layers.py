@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.sharding import local_gather_last, unshard_dim
+from ..distributed.sharding import fsdp_gather, linear, local_gather_last, unshard_dim
 
 
 def _init(shape, scale, dtype, device, generator):
@@ -89,8 +89,8 @@ def mlp_init(generator, d_model, d_ff, dtype, device=None) -> MLP:
 
 
 def mlp_apply(p, x):
-    h = F.silu(x @ p.gate) * (x @ p.up)
-    return h @ p.down
+    h = F.silu(linear(x, p.gate)) * linear(x, p.up)
+    return linear(h, p.down)
 
 
 # --------------------------------------------------------------------------
@@ -106,10 +106,10 @@ def embed_init(generator, vocab_padded, d_model, dtype, device=None):
 
 def embed_lookup(table, tokens):
     """``jnp.take(table, tokens, axis=0)`` for in-range token ids. A DTensor
-    table's vocab dimension is gathered first: DTensor's rule for a
+    table's vocab dimension is gathered first (DTensor's rule for a
     vocab-sharded ``embedding`` leaves a mask placement whose reduction
-    fails."""
-    return F.embedding(tokens, unshard_dim(table, 0))
+    fails), and its FSDP split (``fsdp_gather``)."""
+    return F.embedding(tokens, fsdp_gather(unshard_dim(table, 0)))
 
 
 # --------------------------------------------------------------------------

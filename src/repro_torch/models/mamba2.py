@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from ..distributed.sharding import entry_axes, shard_map, spec_for, unshard_unless_divides
+from ..distributed.sharding import (entry_axes, linear, shard_map, spec_for, spec_of,
+                                    unshard_unless_divides)
 from .layers import _init, rmsnorm, rmsnorm_init
 
 
@@ -190,6 +191,13 @@ class MambaCache(NamedTuple):
         )
 
 
+#: the logical axes of a stack of caches (L, ...), the reference's
+#: ``decode_state_axes`` leaves
+MAMBA_CACHE_AXES = MambaCache(conv_x=("layers", "batch", "conv", "mlp"),
+                              conv_bc=("layers", "batch", "conv", None),
+                              h=("layers", "batch", "heads", "state", "head_dim"))
+
+
 def _shapes(p):
     d_inner = p.out_proj.shape[0]
     H = p.A_log.shape[0]
@@ -200,10 +208,7 @@ def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
     """u: (B, S, D) -> (B, S, D); returns (out, final_state)."""
     Bsz, S, _ = u.shape
     d_inner, H, Pd, N = _shapes(p)
-    z = u @ p.in_z
-    x = u @ p.in_x
-    bc = u @ p.in_bc
-    dt = u @ p.in_dt
+    z, x, bc, dt = (linear(u, w) for w in (p.in_z, p.in_x, p.in_bc, p.in_dt))
     x = unshard_unless_divides(_causal_conv(x, p.conv_x, p.conv_x_b), -1, H)
     x = x.reshape(Bsz, S, H, Pd)
     bc = _causal_conv(bc, p.conv_bc, p.conv_bc_b)
@@ -212,7 +217,7 @@ def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
     y, h_last = ssd_chunked(x, dt, Bm, Cm, p.A_log, p.D, chunk, use_kernel=use_kernel)
     y = y.reshape(Bsz, S, d_inner)
     y = rmsnorm(y, p.norm_w) * F.silu(z)
-    return y @ p.out_proj, h_last
+    return linear(y, p.out_proj), h_last
 
 
 def ssm_layer(lp, h, cfg):
@@ -223,34 +228,57 @@ def ssm_layer(lp, h, cfg):
     return h + out
 
 
+def _conv_step(x, w, b, window):
+    """One token of the causal conv: x (B, C) after the cached K-1 inputs
+    ``window`` (B, K-1, C), which shifts by one token in place."""
+    wx = torch.cat([window, x[:, None, :]], dim=1)                   # (B,K,C)
+    out = F.silu(torch.einsum("bkc,kc->bc", wx, w) + b)
+    window.copy_(wx[:, 1:, :])
+    return out
+
+
+def _ssm_step(x, Bm, Cm, dt, A_log, D, h):
+    """One token of the SSM recurrence: x (B,H,P) fp32, Bm/Cm (B,N), dt
+    (B,H) after the softplus; the state h (B,H,N,P) is updated in place.
+    Returns y (B,H,P) fp32."""
+    A = -torch.exp(A_log)
+    decay = torch.exp(dt * A)                                        # (B,H)
+    xdt = x * dt[..., None]                                          # (B,H,P)
+    h.mul_(decay[..., None, None]).add_(torch.einsum("bn,bhp->bhnp", Bm, xdt))
+    return torch.einsum("bn,bhnp->bhp", Cm, h) + D[:, None] * x
+
+
+def _on_cache_shards(fn, cache_t, in_specs, out_spec):
+    """``fn`` on each rank's shards, with ``cache_t`` (a DTensor cache tensor,
+    updated in place) taken as it is laid out; the other inputs are laid out
+    to match it."""
+    return shard_map(fn, cache_t.device_mesh, in_specs + (spec_of(cache_t),), out_spec)
+
+
 def mamba2_decode(p, u, cache: MambaCache):
     """u: (B, D) single token. Returns (out (B, D), cache). Unlike the
     reference, which returns a new cache, this updates ``cache``'s tensors
     in place (the conv windows shift by one token, ``h`` takes the new
-    state) and returns it."""
+    state) and returns it. Under a mesh the conv and the recurrence run on
+    each rank's shards of the cache, as it is laid out."""
     Bsz, _ = u.shape
     d_inner, H, Pd, N = _shapes(p)
-    z = u @ p.in_z
-    x = u @ p.in_x
-    bc = u @ p.in_bc
-    dt = u @ p.in_dt
-    # causal conv over (cached K-1 inputs, current token)
-    wx = torch.cat([cache.conv_x, x[:, None, :]], dim=1)             # (B,K,C)
-    x = F.silu(torch.einsum("bkc,kc->bc", wx, p.conv_x) + p.conv_x_b)
-    wbc = torch.cat([cache.conv_bc, bc[:, None, :]], dim=1)
-    bc = F.silu(torch.einsum("bkc,kc->bc", wbc, p.conv_bc) + p.conv_bc_b)
-    x = x.reshape(Bsz, H, Pd).float()
-    Bm = bc[..., :N].float()
-    Cm = bc[..., N:].float()
+    z, x, bc, dt = (linear(u, w) for w in (p.in_z, p.in_x, p.in_bc, p.in_dt))
+    conv_x = conv_bc = _conv_step
+    ssm = _ssm_step
+    if isinstance(cache.h, DTensor):
+        bax, _, cax = spec_of(cache.conv_x)
+        conv_x = _on_cache_shards(_conv_step, cache.conv_x, ((bax, cax), (None, cax), (cax,)),
+                                  (bax, cax))
+        conv_bc = _on_cache_shards(_conv_step, cache.conv_bc, ((bax,), (), ()), (bax,))
+        hb, hh = spec_of(cache.h)[:2]
+        ssm = _on_cache_shards(_ssm_step, cache.h, ((hb, hh), (hb,), (hb,), (hb, hh), (hh,),
+                                                    (hh,)), (hb, hh))
+    x = conv_x(x, p.conv_x, p.conv_x_b, cache.conv_x)
+    bc = conv_bc(bc, p.conv_bc, p.conv_bc_b, cache.conv_bc)
+    x = unshard_unless_divides(x, -1, H).reshape(Bsz, H, Pd).float()
     dt = F.softplus(dt.float() + p.dt_bias)                          # (B,H)
-    A = -torch.exp(p.A_log)
-    decay = torch.exp(dt * A)                                        # (B,H)
-    xdt = x * dt[..., None]                                          # (B,H,P)
-    h = cache.h.mul_(decay[..., None, None]).add_(
-        torch.einsum("bn,bhp->bhnp", Bm, xdt))
-    y = torch.einsum("bn,bhnp->bhp", Cm, h) + p.D[:, None] * x
+    y = ssm(x, bc[..., :N].float(), bc[..., N:].float(), dt, p.A_log, p.D, cache.h)
     y = y.reshape(Bsz, d_inner).to(u.dtype)
     y = rmsnorm(y, p.norm_w) * F.silu(z)
-    cache.conv_x.copy_(wx[:, 1:, :])
-    cache.conv_bc.copy_(wbc[:, 1:, :])
-    return y @ p.out_proj, cache
+    return linear(y, p.out_proj), cache

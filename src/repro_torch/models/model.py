@@ -12,12 +12,15 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed import shard_activation
+from ..distributed.sharding import assign, place_state
+from .attention import KV_CACHE_AXES
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
-from .mamba2 import MambaCache, SSMLayer, mamba2_decode, mamba2_forward, ssm_layer
-from .transformer import (Transformer, _embed_inputs, _logits, _scan_layers,
-                          transformer_decode_step, transformer_init, transformer_loss,
-                          transformer_prefill)
+from .mamba2 import (MAMBA_CACHE_AXES, MambaCache, SSMLayer, mamba2_decode, mamba2_forward,
+                     ssm_layer)
+from .transformer import (DecodeState, Transformer, _embed_inputs, _logits, _scan_layers,
+                          init_cache, transformer_decode_step, transformer_init,
+                          transformer_loss, transformer_prefill)
 from .zamba2 import (HybridState, Zamba2, zamba2_decode_step, zamba2_forward,
                      zamba2_init, zamba2_init_state)
 
@@ -49,12 +52,6 @@ def ssm_init(generator, cfg, device=None) -> SSM:
     return SSM(cfg, device, generator)
 
 
-def _lm_logits(params, cfg, h):
-    if cfg.tie_embeddings:
-        return h @ params.embed.t()
-    return h @ params.head
-
-
 def _ssm_backbone(params, cfg, h):
     """Every layer in turn; with ``cfg.remat`` each one is checkpointed."""
     for lp in params.layers:
@@ -67,12 +64,20 @@ def ssm_loss(params, cfg, batch):
     h = shard_activation(embed_lookup(params.embed, batch["tokens"]))
     h = _ssm_backbone(params, cfg, h)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
+    return softmax_xent(_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
 
 class SSMState(NamedTuple):
     caches: MambaCache  # stacked (L, ...) tensors
     pos: int
+
+
+def ssm_init_caches(cfg, batch, device=None) -> MambaCache:
+    """Zero stacked caches; under a mesh laid out by ``MAMBA_CACHE_AXES``."""
+    base = MambaCache.init(batch, cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                           ssm_state=cfg.ssm_state, dtype=cfg.dtype, device=device)
+    return place_state(MambaCache(*(t.new_zeros((cfg.n_layers, *t.shape)) for t in base)),
+                       MAMBA_CACHE_AXES)
 
 
 def ssm_prefill(params, cfg, batch, cache_len):
@@ -84,19 +89,15 @@ def ssm_prefill(params, cfg, batch, cache_len):
     conv inputs (the decode continues with a fresh conv window); only the
     SSM state ``h`` carries the prompt over."""
     h = shard_activation(embed_lookup(params.embed, batch["tokens"]))
-    L = cfg.n_layers
-    base = MambaCache.init(h.shape[0], cfg.d_model, expand=cfg.ssm_expand,
-                           headdim=cfg.ssm_headdim, ssm_state=cfg.ssm_state,
-                           dtype=cfg.dtype, device=h.device)
-    caches = MambaCache(*(t.new_zeros((L, *t.shape)) for t in base))
+    caches = ssm_init_caches(cfg, h.shape[0], h.device)
     for i, lp in enumerate(params.layers):
         h = shard_activation(h)
         out, h_last = mamba2_forward(lp, rmsnorm(h, lp.ln, cfg.norm_eps),
                                      chunk=cfg.ssm_chunk, use_kernel=cfg.use_ssd_kernel)
         h = h + out
-        caches.h[i] = h_last     # into the stacked state: no second copy of it
+        assign(caches.h, (i,), h_last)  # into the stacked state: no second copy of it
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    logits = _lm_logits(params, cfg, h[:, -1])
+    logits = _logits(params, cfg, h[:, -1])
     return logits, SSMState(caches, batch["tokens"].shape[1])
 
 
@@ -110,7 +111,7 @@ def ssm_decode_step(params, cfg, state: SSMState, tokens):
                                MambaCache(c.conv_x[i], c.conv_bc[i], c.h[i]))
         h = h + out
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    return _lm_logits(params, cfg, h), SSMState(c, state.pos + 1)
+    return _logits(params, cfg, h), SSMState(c, state.pos + 1)
 
 
 # --------------------------------------------------------------------------
@@ -126,7 +127,7 @@ def hybrid_loss(params, cfg, batch):
     h = shard_activation(embed_lookup(params.embed, tokens))
     h = zamba2_forward(params, cfg, h, _positions(tokens))
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    return softmax_xent(_lm_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
+    return softmax_xent(_logits(params, cfg, h), batch["targets"], cfg.vocab_size)
 
 
 def hybrid_prefill(params, cfg, batch, cache_len):
@@ -142,7 +143,7 @@ def hybrid_prefill(params, cfg, batch, cache_len):
     h = zamba2_forward(params, cfg, h, _positions(tokens))
     h = rmsnorm(h[:, -1], params.final_norm, cfg.norm_eps)
     state = zamba2_init_state(cfg, tokens.shape[0], cache_len, cfg.dtype, tokens.device)
-    return _lm_logits(params, cfg, h), state
+    return _logits(params, cfg, h), state
 
 
 def hybrid_decode_step(params, cfg, state: HybridState, tokens):
@@ -151,7 +152,7 @@ def hybrid_decode_step(params, cfg, state: HybridState, tokens):
     h = shard_activation(embed_lookup(params.embed, tokens))
     h, state = zamba2_decode_step(params, cfg, state, h)
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
-    return _lm_logits(params, cfg, h), state
+    return _logits(params, cfg, h), state
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +224,30 @@ class Model:
         if f == "hybrid":
             return hybrid_decode_step(params, self.cfg, state, tokens)
         return transformer_decode_step(params, self.cfg, state, tokens)
+
+    def decode_state_axes(self):
+        """The logical axes of ``init_decode_state``'s tensors, a tree of the
+        same structure (``pos`` is ``()``)."""
+        f = self.cfg.family
+        if f == "ssm":
+            return SSMState(MAMBA_CACHE_AXES, ())
+        if f == "hybrid":
+            return HybridState(MAMBA_CACHE_AXES, KV_CACHE_AXES, ())
+        return DecodeState(KV_CACHE_AXES, ())
+
+    def init_decode_state(self, batch, cache_len, device=None):
+        """The empty decode state of ``batch`` sequences, its caches sized for
+        ``cache_len`` and ``pos = cache_len``, as the reference builds it
+        for the dry-run; under a mesh laid out by ``decode_state_axes``."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        f = cfg.family
+        if f == "ssm":
+            return SSMState(ssm_init_caches(cfg, batch, device), cache_len)
+        if f == "hybrid":
+            st = zamba2_init_state(cfg, batch, cache_len, cfg.dtype, device)
+            return HybridState(st.mamba, st.attn, cache_len)
+        return DecodeState(init_cache(cfg, batch, cache_len, cfg.dtype, device), cache_len)
 
     @torch.no_grad()
     def encode(self, params, batch):

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from ..distributed import shard_activation
-from .attention import (Attention, KVCache, cache_capacity, decode_attn,
+from ..distributed.sharding import assign, linear, place_state
+from .attention import (KV_CACHE_AXES, Attention, KVCache, cache_capacity, decode_attn,
                         multihead_attn)
 from .layers import (MLP, _init, embed_init, embed_lookup, mlp_apply, pad_vocab,
                      remat, rmsnorm, rmsnorm_init, softmax_xent)
@@ -108,8 +109,8 @@ def _scan_layers(params, cfg, h, positions):
 
 def _logits(params, cfg, h):
     if cfg.tie_embeddings:
-        return h @ params.embed.t()
-    return h @ params.head
+        return linear(h, params.embed.t())
+    return linear(h, params.head)
 
 
 def _embed_inputs(params, cfg, batch):
@@ -150,12 +151,13 @@ class DecodeState(NamedTuple):
 
 
 def init_cache(cfg, batch, seq_len, dtype, device=None):
+    """Empty stacked caches; under a mesh laid out by ``KV_CACHE_AXES``."""
     cap = cache_capacity(seq_len, cfg.sliding_window)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, _head_dim(cfg)
-    return KVCache(
+    return place_state(KVCache(
         k=torch.zeros((L, batch, cap, KV, hd), dtype=dtype, device=device),
         v=torch.zeros((L, batch, cap, KV, hd), dtype=dtype, device=device),
-        slot_pos=torch.full((L, cap), -1, dtype=torch.int32, device=device))
+        slot_pos=torch.full((L, cap), -1, dtype=torch.int32, device=device)), KV_CACHE_AXES)
 
 
 def transformer_prefill(params, cfg, batch, cache_len):
@@ -174,10 +176,10 @@ def transformer_prefill(params, cfg, batch, cache_len):
     for i, lp in enumerate(params.layers):
         h = shard_activation(h)
         h, _, (k, v) = block_apply(lp, h, cfg, positions, return_kv=True)
-        caches.k[i][:, slots] = k[:, S - take:]
-        caches.v[i][:, slots] = v[:, S - take:]
-    caches.slot_pos[:, slots] = torch.arange(S - take, S, dtype=torch.int32,
-                                             device=device)
+        assign(caches.k, (i, slice(None), slots), k[:, S - take:])
+        assign(caches.v, (i, slice(None), slots), v[:, S - take:])
+    assign(caches.slot_pos, (slice(None), slots),
+           torch.arange(S - take, S, dtype=torch.int32, device=device))
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), DecodeState(caches, S)
 

@@ -21,9 +21,11 @@ import torch
 from torch import nn
 
 from ..distributed import shard_activation
-from .attention import Attention, KVCache, cache_capacity, decode_attn, multihead_attn
+from ..distributed.sharding import place_state
+from .attention import (KV_CACHE_AXES, Attention, KVCache, cache_capacity, decode_attn,
+                        multihead_attn)
 from .layers import MLP, _init, embed_init, mlp_apply, pad_vocab, remat, rmsnorm, rmsnorm_init
-from .mamba2 import MambaCache, SSMLayer, mamba2_decode, ssm_layer
+from .mamba2 import MAMBA_CACHE_AXES, MambaCache, SSMLayer, mamba2_decode, ssm_layer
 
 
 def _sites(cfg) -> list[int]:
@@ -116,7 +118,8 @@ class HybridState(NamedTuple):
 
 
 def zamba2_init_state(cfg, batch, cache_len, dtype, device=None) -> HybridState:
-    """Empty caches: zero conv windows and states, empty KV slots, pos 0."""
+    """Empty caches: zero conv windows and states, empty KV slots, pos 0;
+    under a mesh laid out by their logical axes."""
     n_sites = len(_sites(cfg))
     m = MambaCache.init(batch, cfg.d_model, expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
                         ssm_state=cfg.ssm_state, dtype=dtype, device=device)
@@ -124,7 +127,7 @@ def zamba2_init_state(cfg, batch, cache_len, dtype, device=None) -> HybridState:
     cap = cache_capacity(cache_len, cfg.sliding_window)
     a = KVCache.init(batch, cap, cfg.n_kv_heads, cfg.d_model // cfg.n_heads, dtype, device)
     a = KVCache(*(t.expand(n_sites, *t.shape).clone() for t in a))
-    return HybridState(m, a, 0)
+    return HybridState(place_state(m, MAMBA_CACHE_AXES), place_state(a, KV_CACHE_AXES), 0)
 
 
 def zamba2_decode_step(params, cfg, state: HybridState, h):

@@ -8,12 +8,14 @@ moments ``m`` and ``v`` are fp32 for every parameter, bf16 ones included;
 ``count`` is a 0-d int32 tensor on the parameters' device, so the schedule
 and the bias correction never wait for the host.
 
-The parameters may be DTensors (``distributed.place``). The moments then
-follow the parameters' placements, as the reference's state follows the
-parameters' logical sharding; each gradient is laid out like its parameter,
-the update runs on each rank's shard, and ``global_norm`` adds every
-shard's squares (a ``Partial`` sum, all-reduced), so clipping uses the norm
-of the whole tree.
+The parameters may be DTensors (``distributed.place``). ``adamw_init``'s
+moments follow the parameters' placements, as the reference's state follows
+the parameters' logical sharding; moments laid out otherwise (a strategy's
+``OPT_RULES``) are taken as they are. Each gradient and parameter is laid
+out like its moments, the update runs on each rank's shard (and goes back
+onto the parameter's layout), and ``global_norm`` adds every shard's
+squares (a ``Partial`` sum, all-reduced), so clipping uses the norm of the
+whole tree.
 """
 from __future__ import annotations
 
@@ -78,13 +80,18 @@ def global_norm(tree: dict):
 
 
 def _local(p, g, m, v):
-    """This rank's shards of a DTensor parameter, its gradient (laid out
-    like the parameter first) and its moments; plain tensors as they are."""
+    """This rank's shards of a DTensor parameter, its gradient and its
+    moments, the parameter and the gradient laid out like the moments first
+    (a strategy's ``OPT_RULES`` may shard the moments differently, ZeRO-1
+    style); plain tensors as they are. Returns them and the laid-out
+    parameter (``p`` itself where the layouts agree)."""
     if not isinstance(p, DTensor):
-        return p, g, m, v
-    if tuple(g.placements) != tuple(p.placements):
-        g = g.redistribute(p.device_mesh, p.placements)
-    return p.to_local(), g.to_local(), m.to_local(), v.to_local()
+        return p, g, m, v, p
+    mesh, placements = m.device_mesh, tuple(m.placements)
+    if tuple(g.placements) != placements:
+        g = g.redistribute(mesh, placements)
+    pm = p if tuple(p.placements) == placements else p.redistribute(mesh, placements)
+    return pm.to_local(), g.to_local(), m.to_local(), v.to_local(), pm
 
 
 @torch.no_grad()
@@ -104,11 +111,14 @@ def adamw_update(grads: dict, params: dict, state: AdamWState, cfg: AdamWConfig)
     b1c = 1 - cfg.b1 ** count.float()
     b2c = 1 - cfg.b2 ** count.float()
     for k in params:
-        p, g, m, v = _local(params[k], grads[k], state.m[k], state.v[k])
+        p, g, m, v, pm = _local(params[k], grads[k], state.m[k], state.v[k])
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
         p32 = p.float()
         step = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p32
         p.copy_(p32 - lr * step)
+        if pm is not params[k]:     # back onto the parameter's own layout
+            params[k].to_local().copy_(
+                pm.redistribute(params[k].device_mesh, params[k].placements).to_local())
     return params, AdamWState(state.m, state.v, count), gnorm

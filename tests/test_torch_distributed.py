@@ -4,7 +4,10 @@ the CPU: 8 gloo processes for the port, 8 faked XLA host devices for JAX.
 - the sharded fp32 smoke train step (``model.loss`` and ``adamw_update``
   under ``mesh_context``, the parameters placed by ``shard_params``) on a
   (4, 2) mesh: tinyllama under every strategy, mamba2, zamba2 and
-  qwen2-moe under ``tp_fsdp``; against the JAX sharded step, whose mesh
+  qwen2-moe under ``tp_fsdp``; and tinyllama under ``tp_fsdp`` on (1, 8),
+  where the ``model`` axis exceeds its 2 KV heads and its 4 query heads, and
+  on (2, 4), where it exceeds the KV heads only (each rank's query head reads
+  its KV head of the whole K and V); against the JAX sharded step, whose mesh
   has ``Auto`` axes (under jax 0.9.0's default ``Explicit`` axes the JAX
   step does not run), and against the port's unsharded step: the loss,
   the updated parameters, the gradient norm, and each leaf's gradient and
@@ -15,6 +18,13 @@ the CPU: 8 gloo processes for the port, 8 faked XLA host devices for JAX.
 - the sharded MoE dispatch on (4, 2), (2, 4), (8, 1) and (1, 8), against the
   JAX ``shard_map`` branch and against one unpartitioned dispatch per data
   shard, with the aux of data shard 0;
+- AdamW with the moments laid out by ``OPT_RULES["dp_fsdp"]`` (split over
+  both axes, unlike the parameters): the same update as with moments laid
+  out like the parameters;
+- sharded ``prefill`` and 4 ``decode_step``s of the tinyllama, mamba2 and
+  zamba2 smoke configs under ``tp_fsdp`` and ``tp_serve`` on (4, 2) (and
+  tinyllama's on (2, 4)), with a DTensor decode state, against the
+  unsharded calls' logits;
 - the elastic restore of ``tests/test_distributed_exec.py``'s program:
   smollm saved sharded under (4, 2), restored onto (2, 4);
 - checkpoints crossing between the packages both ways.
@@ -22,6 +32,7 @@ the CPU: 8 gloo processes for the port, 8 faked XLA host devices for JAX.
 One spawn of 8 port ranks runs every check, beside one JAX process that
 runs the sharded programs; each has its own timeout.
 """
+import inspect
 import json
 import os
 import subprocess
@@ -35,9 +46,17 @@ import pytest
 from repro_torch.distributed import STRATEGIES
 
 ROOT = Path(__file__).resolve().parents[1]
-STEPS = [("tinyllama-1.1b", s) for s in STRATEGIES] + [
-    (arch, "tp_fsdp") for arch in ("mamba2-2.7b", "zamba2-1.2b", "qwen2-moe-a2.7b")]
+# (arch, strategy, mesh)
+STEPS = [("tinyllama-1.1b", s, (4, 2)) for s in STRATEGIES] + [
+    (arch, "tp_fsdp", (4, 2)) for arch in ("mamba2-2.7b", "zamba2-1.2b", "qwen2-moe-a2.7b")] + [
+    ("tinyllama-1.1b", "tp_fsdp", (1, 8)), ("tinyllama-1.1b", "tp_fsdp", (2, 4))]
 MOE_MESHES = [(4, 2), (2, 4), (8, 1), (1, 8)]
+# sharded prefill + decode steps: (arch, strategy, mesh)
+SERVES = [(arch, s, (4, 2)) for arch in ("tinyllama-1.1b", "mamba2-2.7b", "zamba2-1.2b")
+          for s in ("tp_fsdp", "tp_serve")] + [("tinyllama-1.1b", "tp_fsdp", (2, 4))]
+DECODE_STEPS = 4
+# the sharded logits against the unsharded ones, of the largest |logit|
+SERVE_TOL = 1e-5
 # the reference's own bounds (tests/test_distributed_exec.py)
 LOSS_TOL, PARAM_TOL = 1e-4, 1e-3
 # the global gradient norm of the step, relative
@@ -52,9 +71,20 @@ TIMEOUT = 600
 # the JAX sharded programs run in three processes, each compiling a part:
 # tag -> (steps, MoE meshes)
 JAX_PARTS = {"tinyllama": ([s for s in STEPS if s[0] == "tinyllama-1.1b"], []),
-             "zamba2": ([("zamba2-1.2b", "tp_fsdp")], []),
+             "zamba2": ([s for s in STEPS if s[0] == "zamba2-1.2b"], []),
              "rest": ([s for s in STEPS if s[0] in ("mamba2-2.7b", "qwen2-moe-a2.7b")],
                       MOE_MESHES)}
+
+
+def step_name(arch, strategy, mesh):
+    """A step's key in the results: ``arch/strategy``, and the mesh where it
+    is not (4, 2)."""
+    mesh = tuple(mesh)
+    return f"{arch}/{strategy}" + ("" if mesh == (4, 2) else f"/{mesh[0]}x{mesh[1]}")
+
+
+# the JAX programs and the port's ranks name the steps alike
+_STEP_NAME = "\n\n" + inspect.getsource(step_name)
 
 _PRELUDE = r"""
 import json, os, sys
@@ -92,13 +122,13 @@ def moe_inputs():
     from repro.models.moe import moe_init
     p, _ = moe_init(jax.random.PRNGKey(3), 32, 48, 8, jnp.float32)
     return p, jax.random.normal(jax.random.PRNGKey(4), (8, 16, 32))
-"""
+""" + _STEP_NAME
 
 # the weights, batches and a checkpoint, for the port
 JAX_INIT = _PRELUDE + r"""
 from repro.checkpoint import CheckpointManager
 arrays = {}
-for arch in dict.fromkeys([a for a, _ in STEPS] + ["smollm-360m"]):
+for arch in dict.fromkeys([a for a, _, _ in STEPS] + ["smollm-360m"]):
     _, params, _, batch = init(arch)
     flat(arrays, f"{arch}/init", params)
     for k, v in batch.items():
@@ -122,7 +152,7 @@ from repro.models.moe import moe_apply
 from repro.optim import AdamWConfig, adamw_init, adamw_update
 arrays, meta = {}, {}
 acfg = AdamWConfig(**json.loads(sys.argv[4]))
-for arch in dict.fromkeys(a for a, _ in STEPS):
+for arch in dict.fromkeys(a for a, _, _ in STEPS):
     model, params, axes, batch = init(arch)
     opt = adamw_init(params)
 
@@ -131,17 +161,18 @@ for arch in dict.fromkeys(a for a, _ in STEPS):
         new, _, gn = adamw_update(g, p, o, acfg)
         return loss, new, gn, g
 
-    for a, strategy in STEPS:
+    for a, strategy, shape in STEPS:
         if a != arch:
             continue
-        m = mesh((4, 2))
+        m = mesh(shape)
         with mesh_context(m, rules=STRATEGIES[strategy]):
             sh = tree_shardings(jax.eval_shape(lambda: params), axes, m)
             ps = jax.tree.map(jax.device_put, params, sh)
             loss, new, gn, g = jax.jit(step)(ps, opt, batch)
-        meta[f"{arch}/{strategy}"] = {"loss": float(loss), "gnorm": float(gn)}
-        flat(arrays, f"{arch}/{strategy}/params", new)
-        flat(arrays, f"{arch}/{strategy}/grads", g)
+        name = step_name(arch, strategy, shape)
+        meta[name] = {"loss": float(loss), "gnorm": float(gn)}
+        flat(arrays, f"{name}/params", new)
+        flat(arrays, f"{name}/grads", g)
 p, x = moe_inputs()
 for shape in MOE_MESHES:
     with mesh_context(mesh(shape)):
@@ -173,7 +204,10 @@ rank, world, store, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.a
 STEPS = json.loads(sys.argv[5])
 MOE_MESHES = json.loads(sys.argv[6])
 ADAMW = json.loads(sys.argv[7])
+SERVES = json.loads(sys.argv[8])
+DECODE_STEPS = int(sys.argv[9])
 torch.set_num_threads(1)
+exec(sys.argv[10])     # step_name
 logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
 dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                         world_size=world)
@@ -181,11 +215,12 @@ from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax, named_to_jax
-from repro_torch.distributed import STRATEGIES, mesh_context, place, shard_params
-from repro_torch.distributed.sharding import full
+from repro_torch.distributed import OPT_RULES, STRATEGIES, mesh_context, place, shard_params
+from repro_torch.distributed.sharding import full, place_tensor
 from repro_torch.models import Model
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import AdamWState
 
 init = np.load(os.path.join(out, "init.npz"))
 results, arrays = {}, {}
@@ -246,19 +281,64 @@ def keep(prefix, params, grads):
 
 
 t0 = time.time()
-for arch, strategy in STEPS:
+for arch, strategy, shape in STEPS:
     if f"{arch}/unsharded" not in results:
         model, params, batch = setup(arch)
         loss, gn, grads = step(model, params, batch)
         results[f"{arch}/unsharded"] = {"loss": loss, "gnorm": gn}
         keep(f"{arch}/unsharded", params, grads)
     model, params, batch = setup(arch)
-    with mesh_context(mesh((4, 2)), STRATEGIES[strategy]):
+    name = step_name(arch, strategy, shape)
+    with mesh_context(mesh(shape), STRATEGIES[strategy]):
         place(params, shard_params(params, model.logical_axes(params)))
         loss, gn, grads = step(model, params, batch)
-    results[f"{arch}/{strategy}"] = {"loss": loss, "gnorm": gn}
-    keep(f"{arch}/{strategy}", params, grads)
+    results[name] = {"loss": loss, "gnorm": gn}
+    keep(name, params, grads)
+    if name == "tinyllama-1.1b/dp_fsdp":
+        dp_fsdp = {k: full(v.detach()).clone() for k, v in params.state_dict().items()}
 results["seconds/steps"] = time.time() - t0
+
+# the dp_fsdp step again, its moments laid out by the strategy's OPT_RULES
+model, params, batch = setup("tinyllama-1.1b")
+with mesh_context(mesh((4, 2)), STRATEGIES["dp_fsdp"]):
+    axes = model.logical_axes(params)
+    place(params, shard_params(params, axes))
+    model.loss(params, batch).backward()
+    named = dict(params.named_parameters())
+    mv = shard_params(params, axes, rules=OPT_RULES["dp_fsdp"])
+    m = {k: place_tensor(torch.zeros(p.shape), mv[k]) for k, p in named.items()}
+    state = AdamWState(m, {k: z.clone() for k, z in m.items()},
+                       torch.zeros((), dtype=torch.int32))
+    adamw_update({k: p.grad for k, p in named.items()}, named, state, AdamWConfig(**ADAMW))
+results["opt_rules"] = {
+    "moments_moved": sum(tuple(m[k].placements) != tuple(named[k].placements) for k in named),
+    "max_diff": max(float((full(v.detach()) - dp_fsdp[k]).abs().max())
+                    for k, v in params.state_dict().items())}
+
+
+# prefill, then DECODE_STEPS decode steps fed the batch's targets; the
+# logits of each call, whole
+def serve(model, params, batch):
+    S = batch["tokens"].shape[1]
+    logits, state = model.prefill(params, {"tokens": batch["tokens"]}, S + DECODE_STEPS)
+    out = [full(logits)]
+    for j in range(DECODE_STEPS):
+        logits, state = model.decode_step(params, state, batch["targets"][:, j])
+        out.append(full(logits))
+    return torch.stack(out)
+
+
+t0 = time.time()
+for arch, strategy, shape in SERVES:
+    model, params, batch = setup(arch)
+    want = serve(model, params, batch)
+    with mesh_context(mesh(shape), STRATEGIES[strategy]):
+        place(params, shard_params(params, model.logical_axes(params)))
+        got = serve(model, params, batch)
+    results["serve/" + step_name(arch, strategy, shape)] = {
+        "max_diff": float((got - want).abs().max()), "max_logit": float(want.abs().max()),
+        "shape": list(got.shape)}
+results["seconds/serve"] = time.time() - t0
 
 # the MoE layer: sharded, and one unpartitioned dispatch per data shard
 t0 = time.time()
@@ -368,7 +448,8 @@ def run_programs(out: Path):
                         log)
                  for (tag, (st, ms)), log in zip(JAX_PARTS.items(), logs)]
         procs += [_start([PORT_RANK, str(r), "8", str(out / "store"), str(out), steps, meshes,
-                          adamw], logs[r + len(JAX_PARTS)]) for r in range(8)]
+                          adamw, json.dumps(SERVES), str(DECODE_STEPS), _STEP_NAME],
+                         logs[r + len(JAX_PARTS)]) for r in range(8)]
         _wait(procs, logs, deadline)
     finally:
         for log in logs:
@@ -435,18 +516,37 @@ def check_step(runs, arch, name, got, want, ref, arrays_want):
     assert d_update < UPDATE_RTOL, f"update of {uk}"
 
 
-@pytest.mark.parametrize("arch,strategy", STEPS)
-def test_sharded_step_matches_the_jax_sharded_step(runs, arch, strategy):
-    name = f"{arch}/{strategy}"
+def _step_params(steps):
+    """Each step as a test case, named ``arch-strategy`` (and the mesh where
+    it is not (4, 2))."""
+    return [pytest.param(*st, id=step_name(*st).replace("/", "-")) for st in steps]
+
+
+@pytest.mark.parametrize("arch,strategy,shape", _step_params(STEPS))
+def test_sharded_step_matches_the_jax_sharded_step(runs, arch, strategy, shape):
+    name = step_name(arch, strategy, shape)
     check_step(runs, arch, "JAX", name, name, runs["jax"][name], runs["jax_arrays"])
 
 
-@pytest.mark.parametrize("arch,strategy", [s for s in STEPS if not s[0].startswith("qwen2")])
-def test_sharded_step_matches_the_unsharded_port_step(runs, arch, strategy):
+@pytest.mark.parametrize("arch,strategy,shape",
+                         _step_params(s for s in STEPS if not s[0].startswith("qwen2")))
+def test_sharded_step_matches_the_unsharded_port_step(runs, arch, strategy, shape):
     """Every family but MoE: with a capacity from each data shard's tokens
     the sharded MoE routes differently (test_sharded_moe_*)."""
-    check_step(runs, arch, "unsharded", f"{arch}/{strategy}", f"{arch}/unsharded",
+    check_step(runs, arch, "unsharded", step_name(arch, strategy, shape), f"{arch}/unsharded",
                runs["port"][f"{arch}/unsharded"], runs["port_arrays"])
+
+
+@pytest.mark.parametrize("arch,strategy,shape", _step_params(SERVES))
+def test_sharded_prefill_and_decode_match_the_unsharded_calls(runs, arch, strategy, shape):
+    """The caches written on each rank's shards (the prefill's K/V and SSM
+    states, the decode steps' K/V, conv windows and states), then read by
+    the next step: the logits of the prefill and of every decode step."""
+    name = step_name(arch, strategy, shape)
+    r = runs["port"][f"serve/{name}"]
+    print(f"{name}: logits {r['max_diff']:.3g} of {r['max_logit']:.3g}")
+    assert r["shape"] == [1 + DECODE_STEPS, 8, 256]
+    assert r["max_diff"] <= SERVE_TOL * r["max_logit"]
 
 
 @pytest.mark.parametrize("shape", MOE_MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -463,6 +563,16 @@ def test_sharded_moe_matches_the_jax_shard_map_branch(runs, shape):
     assert port["d_per_shard"] < MOE_TOL
     assert abs(port["aux"] - jax_["aux"]) < MOE_TOL
     assert port["aux"] == pytest.approx(port["aux_shard0"], abs=MOE_TOL)
+
+
+def test_adamw_with_moments_laid_out_by_opt_rules(runs):
+    """The update runs on the moments' layout and goes back onto each
+    parameter's: the parameters as with moments laid out like them (the
+    gradients' sums run in other orders: the reference's parameter bound)."""
+    r = runs["port"]["opt_rules"]
+    print(f"opt rules: {r['moments_moved']} moments laid out otherwise, params {r['max_diff']:.3g}")
+    assert r["moments_moved"] > 0
+    assert r["max_diff"] < PARAM_TOL
 
 
 def test_elastic_restore_onto_different_mesh(runs):

@@ -44,16 +44,20 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
     for mod in ("launch.train", "optim.adamw", "checkpoint.manager", "checkpoint.serializer",
                 "data.pipeline", "convert", "models.zamba2", "models.moe", "lint", "trace",
                 "compare", "distributed.sharding", "optim.compression", "launch.mesh",
-                "launch.cluster"):
+                "launch.cluster", "launch.specs", "launch.dryrun"):
         assert f"repro_torch.{mod}" in out["imported"]
     assert out["bad"] == []
 
 
-# the distributed layer's files and the two-rank probe import inside their
-# functions too: no import anywhere in them may name jax or repro
+# the distributed layer's files, the dry-run, the two-rank probe and the
+# examples import inside their functions too: no import anywhere in them may
+# name jax or repro
+EXAMPLES = sorted(f"examples/torch/{p.name}" for p in (ROOT / "examples" / "torch").glob("*.py"))
 DISTRIBUTED_FILES = ["src/repro_torch/distributed/sharding.py",
                      "src/repro_torch/optim/compression.py", "src/repro_torch/launch/mesh.py",
-                     "src/repro_torch/launch/cluster.py", "scripts/probe_two_ranks_one_card.py"]
+                     "src/repro_torch/launch/cluster.py", "src/repro_torch/launch/specs.py",
+                     "src/repro_torch/launch/dryrun.py",
+                     "scripts/probe_two_ranks_one_card.py"] + EXAMPLES
 
 
 @pytest.mark.parametrize("path", DISTRIBUTED_FILES)
@@ -73,7 +77,7 @@ def test_distributed_layer_names_no_jax_and_no_repro(path):
 # the port: ``from m import a``, and ``alias.a`` on a module they imported.
 PORT_SCRIPTS = ["chip_smoke.py"] + sorted(
     f"scripts/{p.name}" for p in (ROOT / "scripts").glob("*.py")
-    if "repro_torch" in p.read_text())
+    if "repro_torch" in p.read_text()) + EXAMPLES
 PORT_MODULES = ("repro_torch", "chip_smoke", "profile_serve_torch", "test_torch_")
 
 
