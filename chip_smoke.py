@@ -87,7 +87,24 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      faked 16x16 mesh (``python -m repro_torch.launch.dryrun``, its three
      cells ok); the examples ``examples/torch/serve_batched.py`` and
      ``train_with_io_aware_checkpointing.py`` on the card;
- 12. one JSON line of train numbers, one of kernel numbers, then the result
+ 12. the shapes past the serving ones, which the Pallas kernels take as
+     well: K1 at every head dim of tests/test_torch_flash.py's ANY_HD_CASES
+     (96 and 256 built natively, the others zero-padded by the wrapper to the
+     next built width), B 4, S 2048, 32 query / 8 KV heads, causal and
+     bidirectional, in every dtype route; K2 in fp16 at mamba2-2.7b's
+     serving shape and at Q 512, N 256, P 128 in bf16 and fp32; each held
+     against its plain version and timed as in phase 3 (padded widths also
+     with the kernel alone at the padded width). Then three full-width
+     paths, each with the launch counts set to 0 just before and read just
+     after: ``serve`` of mamba2-2.7b in fp16 (4 requests of 1024 + 64
+     tokens, batch 2) through K2's fp16 route, its greedy tokens against
+     the same serve with the kernel off; the fp16 prefill (4 x 1024) kernel
+     on against off; mamba2-2.7b with ``ssm_chunk=512`` in bf16 (K2 at Q
+     512) and tinyllama-1.1b with ``head_dim=256`` in bf16 (K1 at hd 256),
+     4 x 1024 prefills kernel on against off; each 16-bit prefill also
+     against the plain path in fp32 on the same weights, which sets the
+     scale of the 16-bit rounding the comparison allows;
+ 13. one JSON line of train numbers, one of kernel numbers, then the result
      line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -180,7 +197,7 @@ ZAMBA_SSD_CASE = (4, 4, 256, 64, 64, 64)
 # the size of the largest output, and two fp32 orders differ there by up to
 # ~8e-6 of it (1.6e-3 against outputs up to 218 on the H100): in f32 the
 # serving shapes' absolute tolerance is 1e-4 of the largest |output|
-SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2, "float16": 5e-2}
 SSD_SERVING_CASES = (SSD_SLICE_CASE, ZAMBA_SSD_CASE)
 # bf16 route against its CPU model of the same roundings (ref.ssd_scan_tf32_ref)
 # on the same inputs: |kernel - model| <= 1e-3 max|model| + 1e-2 |model|. The
@@ -217,6 +234,29 @@ TRAIN = dict(batch=4, seq=1024)
 # relative), the backwards are the same recompute of the plain version, so
 # every gradient leaf agrees within 1e-3 of its largest |g|
 GRAD_RTOL = 1e-3
+# phase 12: K1 at the head dims of tests/test_torch_flash.py's ANY_HD_CASES,
+# (B, S, H, KV) below, causal and bidirectional, in every dtype route
+SHAPE_HEAD_DIMS = (8, 16, 20, 48, 96, 112, 160, 192, 256)
+SHAPE_FLASH = (4, 2048, 32, 8)
+# K2: fp16 at mamba2-2.7b's serving shape; Q 512, N 256, P 128 (mamba2-2.7b's
+# d_inner of 5120 as 40 heads of 128, a 1024-token sequence in 2 chunks)
+SSD_LARGE_CASE = (4, 2, 512, 40, 128, 256)
+SHAPE_SSD = [(SSD_SLICE_CASE, "float16"), (SSD_LARGE_CASE, "bfloat16"),
+             (SSD_LARGE_CASE, "float32")]
+# the kernels at the shapes the two bf16 paths below give them: mamba2-2.7b's
+# Mamba2 layer at chunk 512, tinyllama-1.1b's attention at head dim 256
+SSD_CHUNK512_CASE = (4, 2, 512, 80, 64, 128)
+FLASH_HD256_CASE = (4, 1024, 32, 4, 256, True, 0)
+# the full-width 16-bit paths: serve of 4 requests of the serving prompt and
+# decode lengths at batch 2 (2 waves), prefills of 4 x 1024 tokens
+SHAPE_SERVE = dict(n_requests=4, batch=2)
+SHAPE_PREFILL = (4, 1024)
+# a 16-bit prefill through the kernel against the plain 16-bit path: within
+# twice the plain path's own distance from the plain path in fp32 (what 16
+# bits cost through the model; the two paths round differently, and if
+# each lay that far from fp32 in opposite directions they would differ by
+# twice it). On the H100 the ratio was 1.04-1.15
+SHAPE_PREFILL_LIMIT = 2.0
 
 
 def cuda_ms(torch, fn, reps=20, warmup=3):
@@ -308,7 +348,7 @@ def ssd_bound(case, dtype):
     b, nc, Q, H, P, N = case
     pairs = Q * (Q + 1) // 2
     flops = 2 * b * nc * (pairs * N + H * (pairs * P + 2 * Q * N * P))
-    xb = 2 if dtype == "bfloat16" else 4
+    xb = 4 if dtype == "float32" else 2
     nbytes = (2 * b * nc * Q * H * P * xb + 4 * (2 * b * nc * Q * H + 2 * b * nc * Q * N
                                                  + H + b * H * N * P))
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
@@ -374,13 +414,26 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False):
                                                             window=window)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa["ms"],
            "device_ms": kern["device_ms"], "host_ms": kern["host_ms"]}
+    width = ops.padded_width(hd)
+    if width != hd:
+        # the kernel alone at the padded width, on inputs padded beforehand:
+        # the rest of the wrapper's time is the padding copies and the slice
+        qp, kp, vp = (F.pad(t, (0, width - hd)) for t in (q, k, v))
+        at_width = cuda_ms(torch, lambda: ops._launch(qp, kp, vp, causal, window,
+                                                      1 / math.sqrt(hd)))
+        row.update(padded_to=width, kernel_at_width_ms=at_width,
+                   padding_copy_share=1 - at_width / kern["ms"],
+                   zero_column_share=1 - hd / width)
     print(f"[flash] B,S,H,KV,hd,causal,window={case} {dtype}: max|err| {err:.3g} "
           f"(tol {tol}); kernel {kern['ms']:.4f} ms (device {kern['device_ms']:.4f}, "
           f"host {kern['host_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
           f"sdpa {sdpa['ms']:.4f} ms (device {sdpa['device_ms']:.4f}, "
           f"host {sdpa['host_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by}), "
           f"{100 * bound_ms / kern['ms']:.1f}% of bound, "
-          f"{100 * bound_ms / kern['device_ms']:.1f}% by device time")
+          f"{100 * bound_ms / kern['device_ms']:.1f}% by device time"
+          + (f"; padded to {width}: the kernel alone {row['kernel_at_width_ms']:.4f} ms, "
+             f"the padding copies {100 * row['padding_copy_share']:.1f}% of the call"
+             if width != hd else ""))
     return row
 
 
@@ -431,8 +484,10 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
     err = 0.0
     for out, ref in ((y.float(), ry.float()), (h, rh)):
         err = max(err, (out - ref).abs().max().item())
-        atol = tol * (ref.abs().max().item()
-                      if case in SSD_SERVING_CASES and dtype == "float32" else 1.0)
+        # in f32, sums as long as the serving ones (Q x N >= 256 x 128) are
+        # held to 1e-4 of the largest |output|, as the tests hold them
+        long_sums = case in SSD_SERVING_CASES or Q * N >= 256 * 128
+        atol = tol * (ref.abs().max().item() if long_sums and dtype == "float32" else 1.0)
         if ((out - ref).abs() > atol + tol * ref.abs()).any() or not torch.isfinite(out).all():
             raise AssertionError(f"ssd {case} {dtype}: max |err| {err:.3g} over "
                                  f"tolerance {atol:.3g} + {tol} |ref|")
@@ -611,7 +666,8 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
     """One main path: ``serve`` (``SERVE``'s traffic, ``override`` on it)
     with every launch count set to 0 just before and read just after.
     Checks every logits tensor, the completions and the trace; returns the
-    launch counts and the peak of allocated device memory (bytes)."""
+    launch counts, the peak of allocated device memory (bytes) and serve's
+    output."""
     kw = {**SERVE, **override}
     trace = ROOT / "build" / "chip_smoke" / f"serve_trace_{cfg.name}.jsonl"
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -642,7 +698,8 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
         serve_mod.Model = Model
     peak = torch.cuda.max_memory_allocated()
     trace_rows = trace.read_text().splitlines()
-    print(f"[serve] {cfg.name} bf16 ({cfg.n_layers} layers): {out['requests']} requests, "
+    print(f"[serve] {cfg.name} {str(cfg.dtype).split('.')[-1]} ({cfg.n_layers} layers): "
+          f"{out['requests']} requests, "
           f"{out['new_tokens']} new tokens, {out['tokens_per_s']:.2f} tok/s, "
           f"wall {out['wall_s']:.3f} s, p50 {out['p50_s']:.4f} s, "
           f"p99 {out['p99_s']:.4f} s, peak memory {peak / 2**30:.3f} GiB, "
@@ -656,7 +713,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
            for c in out["completions"]):
         raise AssertionError("a completion has the wrong length or a token "
                              "outside the vocabulary")
-    return launches, peak
+    return launches, peak, out
 
 
 def vlm_path(torch, np, Model, cfg, kernels):
@@ -1330,6 +1387,121 @@ def dryrun_phase(measured, step_s):
     return nums
 
 
+def prefill_16(torch, np, Model, cfg, kernels, flag, want, limit):
+    """Full-width 16-bit prefill of ``cfg`` at ``SHAPE_PREFILL`` on seeded
+    weights and tokens: with ``flag`` on (the kernel; launch counts set to 0
+    just before and read just after, against ``want``) and off (the plain
+    path), then the plain path in fp32 on the same weights cast up. The
+    plain 16-bit path's distance from fp32 is the rounding that 16 bits
+    carry through the model; the kernel path must lie within ``limit``
+    times that distance of the plain 16-bit path (``limit`` None: measure
+    only)."""
+    B, S = SHAPE_PREFILL
+    params = Model(cfg).init(0, device="cuda")
+    batch = make_batch(torch, np, cfg, B, S)
+
+    def run(c):
+        return Model(c).prefill(params, batch, S)[0].float()
+    for k in kernels:
+        k["counter"].launches = 0
+    lk = run(cfg.replace(**{flag: True}))
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    lp = run(cfg.replace(**{flag: False}))
+    params.float()
+    l32 = run(cfg.replace(dtype=torch.float32, **{flag: False}))
+    torch.cuda.synchronize()
+    d_kp, d_k32, d_p32 = ((a - b).abs().max().item() for a, b in ((lk, lp), (lk, l32), (lp, l32)))
+    scale = l32.abs().max().item()
+    same_top = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    finite = bool(torch.isfinite(lk).all() and torch.isfinite(lp).all())
+    what = f"{cfg.name} {str(cfg.dtype).split('.')[-1]} {cfg.n_layers} layers {flag} B={B} S={S}"
+    print(f"[shapes] prefill {what}: kernel vs plain max|diff| {d_kp:.4g}, kernel vs fp32 "
+          f"{d_k32:.4g}, plain vs fp32 {d_p32:.4g} (max|logit| {scale:.4g}); kernel vs plain "
+          f"{d_kp / d_p32:.3g}x the plain path's 16-bit rounding (limit {limit}); top-1 equal "
+          f"in {same_top} of {B}; finite {finite}; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want}")
+    if not finite:
+        raise AssertionError(f"{what}: non-finite logits")
+    if limit is not None and d_kp > limit * d_p32:
+        raise AssertionError(f"{what}: kernel and plain path differ by {d_kp:.4g} > {limit} x "
+                             f"{d_p32:.4g}")
+    del params, lk, lp, l32
+    torch.cuda.empty_cache()
+    return {"max_abs_diff": d_kp, "kernel_vs_fp32": d_k32, "plain_vs_fp32": d_p32,
+            "max_abs_logit": scale, "top1_equal": [same_top, B], "launches": launches}
+
+
+def serve_greedy(torch, serve_mod, Model, cfg, kernels, flag, want):
+    """``serve`` of ``cfg`` (``SHAPE_SERVE``'s traffic) through the kernel,
+    its launches against ``want``, then the same serve with the kernel off;
+    the greedy tokens must be the same. Returns serve's numbers."""
+    got, peak, out = serve_path(torch, serve_mod, Model, cfg.replace(**{flag: True}), kernels,
+                                **SHAPE_SERVE)
+    if got != want:
+        raise AssertionError(f"{cfg.name} serve launched {got}, expected {want}")
+    off, _, ref = serve_path(torch, serve_mod, Model, cfg.replace(**{flag: False}), kernels,
+                             **SHAPE_SERVE)
+    if any(off.values()):
+        raise AssertionError(f"{cfg.name} serve with {flag} off launched {off}")
+    a = [c["tokens"] for c in out["completions"]]
+    b = [c["tokens"] for c in ref["completions"]]
+    same = sum(x == y for r, q in zip(a, b) for x, y in zip(r, q))
+    total = sum(len(r) for r in b)
+    print(f"[shapes] serve {cfg.name} {str(cfg.dtype).split('.')[-1]}: greedy tokens equal "
+          f"kernel on vs off at {same} of {total} positions")
+    if a != b:
+        raise AssertionError(f"{cfg.name}: greedy tokens differ with {flag} on and off")
+    keys = ("requests", "new_tokens", "tokens_per_s", "wall_s", "p50_s", "p99_s")
+    return {"kernel": {k: out[k] for k in keys}, "plain": {k: ref[k] for k in keys},
+            "peak_gib": peak / 2**30, "launches": got, "tokens_equal": [same, total]}
+
+
+def shapes_phase(torch, np, Model, serve_mod, get_config, ops, attention_ref, ssd_ops,
+                 ssd_scan_ref, ssd_scan_tf32_ref, kernels):
+    """Phase 12: the kernels at the shapes past the serving ones, then the
+    three full-width 16-bit paths. Returns (K1 rows, K2 rows, path numbers,
+    each kernel's launches on each path)."""
+    K1, K2 = "flash_attention_fwd", "ssd_scan_fwd"
+    B, S, H, KV = SHAPE_FLASH
+    flash_rows = []
+    for hd in SHAPE_HEAD_DIMS:
+        for causal in (True, False):
+            case = (B, S, H, KV, hd, causal, 0)
+            for dtype in FLASH_DTYPES:
+                row = check_flash(torch, ops, attention_ref, case, dtype, timed=True)
+                flash_rows.append({"case": case, "dtype": dtype, **row})
+    flash_rows.append({"case": FLASH_HD256_CASE, "dtype": "bfloat16",
+                       **check_flash(torch, ops, attention_ref, FLASH_HD256_CASE, "bfloat16",
+                                     timed=True)})
+    ssd_rows = [{"case": case, "dtype": dtype,
+                 **check_ssd(torch, ssd_ops, ssd_scan_ref, case, dtype,
+                             model=None if dtype == "float32" else ssd_scan_tf32_ref)}
+                for case, dtype in SHAPE_SSD + [(SSD_CHUNK512_CASE, "bfloat16")]]
+
+    mamba = get_config("mamba2-2.7b")
+    tiny = get_config("tinyllama-1.1b")
+    per_pass = {"mamba2": {K1: 0, K2: mamba.n_layers}, "tiny": {K1: tiny.n_layers, K2: 0}}
+    waves = -(-SHAPE_SERVE["n_requests"] // SHAPE_SERVE["batch"])
+    nums, launches = {}, {}
+    m16 = mamba.replace(dtype=torch.float16)
+    name = "mamba2-2.7b fp16 serve"
+    nums[name] = serve_greedy(torch, serve_mod, Model, m16, kernels, "use_ssd_kernel",
+                              {K1: 0, K2: waves * mamba.n_layers})
+    launches[name] = nums[name]["launches"]
+    paths = {"mamba2-2.7b fp16 prefill": (m16, "use_ssd_kernel", per_pass["mamba2"]),
+             "mamba2-2.7b chunk 512 bf16 prefill": (mamba.replace(ssm_chunk=512),
+                                                    "use_ssd_kernel", per_pass["mamba2"]),
+             "tinyllama-1.1b head_dim 256 bf16 prefill": (tiny.replace(head_dim=256),
+                                                          "use_flash", per_pass["tiny"])}
+    for name, (cfg, flag, want) in paths.items():
+        nums[name] = prefill_16(torch, np, Model, cfg, kernels, flag, want,
+                                SHAPE_PREFILL_LIMIT)
+        launches[name] = nums[name]["launches"]
+    return flash_rows, ssd_rows, nums, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1436,7 +1608,7 @@ def main() -> int:
     serve_launches, serve_peaks = {}, {}
     for arch, (flags, per_pass) in archs.items():
         cfg = get_config(arch).replace(**{f: True for f in flags})
-        got, serve_peaks[arch] = serve_path(torch, serve_mod, Model, cfg, kernels)
+        got, serve_peaks[arch], _ = serve_path(torch, serve_mod, Model, cfg, kernels)
         expect = {k: waves * n for k, n in per_pass.items()}
         if got != expect:
             raise AssertionError(f"{arch} serve launched {got}, expected {expect}")
@@ -1447,7 +1619,7 @@ def main() -> int:
     mixtral = get_config("mixtral-8x22b").replace(
         use_flash=True, n_layers=CUT_LAYERS["mixtral-8x22b"]["serve"])
     for cfg, kw in ((qwen, {}), (mixtral, MIXTRAL_SERVE)):
-        got, _ = serve_path(torch, serve_mod, Model, cfg, kernels, **kw)
+        got, _, _ = serve_path(torch, serve_mod, Model, cfg, kernels, **kw)
         n_waves = -(-kw.get("n_requests", SERVE["n_requests"]) // SERVE["batch"])
         expect = {K1: n_waves * cfg.n_layers, K2: 0}
         if got != expect:
@@ -1508,15 +1680,24 @@ def main() -> int:
                 "tinyllama-1.1b/prefill": serve_peaks["tinyllama-1.1b"]}
     dryrun_nums = dryrun_phase(measured, train_nums[dense.name]["io_aware"]["step_s"])
 
-    # 12. train numbers, kernel numbers, then the result line
+    # 12. the shapes past the serving ones; three full-width 16-bit paths
+    shape_rows = {}
+    shape_rows[K1], shape_rows[K2], shape_nums, shape_launches = shapes_phase(
+        torch, np, Model, serve_mod, get_config, ops, attention_ref, ssd_ops, ssd_scan_ref,
+        ssd_scan_tf32_ref, kernels)
+
+    # 13. train numbers, kernel numbers, then the result line
     print(json.dumps({"train": train_nums, "families": family_nums,
-                      "distributed": dist_nums, "dryrun": dryrun_nums}))
+                      "distributed": dist_nums, "dryrun": dryrun_nums,
+                      "shapes": shape_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
          "replaces": k["replaces"], "launches": launches[k["name"]], **rows[k["name"]],
          "train_launches": train_paths[k["name"]][0], "train_path": train_paths[k["name"]][1],
          "sharded_launches": sharded_launches[k["name"]],
+         "shapes": shape_rows[k["name"]],
+         "shape_path_launches": {path: n[k["name"]] for path, n in shape_launches.items()},
          "sharded_path": "one tp_fsdp train step of 4 x 1024 tokens on a (1, 1) mesh "
                          "over NCCL, each arch",
          "zamba2": {"serve_launches": serve_launches["zamba2-1.2b"][k["name"]],

@@ -17,17 +17,24 @@
 // shapes (S = 1024, hd = 64) it is bound by operations, not bytes. Both
 // products run in fp32 FMAs on the CUDA cores (67 TFLOP/s peak).
 //
-// Design: one block of BQ = 64 threads per (64-row q tile, head, batch);
-// each thread owns one query row. The q tile is staged once in shared memory
-// (rows padded to HD+1 floats so that thread t reading row t hits distinct
-// banks); each K/V tile of BK keys is staged and read by all threads at the
-// same address (a broadcast). A thread keeps its BK scores and its HD-wide
-// accumulator in registers: at HD = 128 that is 160 floats, which is why q
-// lives in shared memory and BK drops to 32. The probabilities go through
-// shared memory (one padded row per thread) on their way to the P.V product,
-// so that its key loop need not be unrolled. Key tiles outside the causal /
-// window reach of the whole q tile are skipped, the same reachability rule
-// as the TPU kernel.
+// Design: one block of BQ = 64 query rows per (64-row q tile, head,
+// batch); each row is owned by one thread, or at HD = 256 by two (SPLIT).
+// The q tile is staged once in shared memory (rows padded to HD+1 floats so
+// that thread t reading row t hits distinct banks); each K/V tile of BK keys
+// is staged and read by all threads at the same address (a broadcast). A
+// thread keeps its BK scores and its accumulator (HD / SPLIT columns) in
+// registers: at HD = 128 that is 160 floats, which is why q lives in shared
+// memory and BK drops to 32. At HD = 256 one thread's 256 + 32 floats would
+// spill, so the two threads of a pair take the even and the odd columns
+// (adjacent words: no bank conflict between them), sum their halves of each
+// score with one shuffle (both get the same bits: the sum is commutative),
+// run the same softmax and keep 128 accumulator columns each. The
+// probabilities go through shared memory (one padded row per thread) on
+// their way to the P.V product, so that its key loop need not be unrolled.
+// Key tiles outside the causal / window reach of the whole q tile are
+// skipped, the same reachability rule as the TPU kernel. Head dims other
+// than 32, 64, 80, 96, 128 and 256 are zero-padded by the wrapper to the
+// next of these; the scale is passed in (1/sqrt of the unpadded head dim).
 //
 // Entry point: flash_fwd(...) with a plain C interface (loaded with ctypes),
 // launching on the given stream and returning cudaGetLastError().
@@ -47,28 +54,30 @@ __device__ __forceinline__ bool key_valid(int kp, int row, int S, int causal, in
   return ok;
 }
 
-template <int HD, int BK>
-__global__ void __launch_bounds__(BQ)
+template <int HD, int BK, int SPLIT>
+__global__ void __launch_bounds__(BQ * SPLIT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  int S, int H, int KV, int causal, int window, float scale) {
   extern __shared__ float smem[];
+  constexpr int NT = BQ * SPLIT, DH = HD / SPLIT;  // threads; columns a thread owns
   constexpr int QS = HD + 1, PS = BK + 1;
   float* q_s = smem;                 // [BQ][QS]
-  float* p_s = q_s + BQ * QS;        // [BQ][PS] this tile's probabilities
-  float* k_s = p_s + BQ * PS;        // [BK][HD]
+  float* p_s = q_s + BQ * QS;        // [NT][PS] this tile's probabilities, a row a thread
+  float* k_s = p_s + NT * PS;        // [BK][HD]
   float* v_s = k_s + BK * HD;        // [BK][HD]
 
   const int tid = threadIdx.x;
+  const int r = tid / SPLIT, part = tid % SPLIT;  // this thread's row and columns
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int row = q0 + tid;
+  const int row = q0 + r;
 
-  for (int i = tid; i < BQ * HD; i += BQ) {
-    const int r = i / HD, c = i % HD, s = q0 + r;
-    q_s[r * QS + c] =
+  for (int i = tid; i < BQ * HD; i += NT) {
+    const int rr = i / HD, c = i % HD, s = q0 + rr;
+    q_s[rr * QS + c] =
         s < S ? q[(((long long)b * S + s) * H + h) * HD + c] : 0.f;
   }
 
@@ -77,13 +86,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_lo = window ? max(0, q0 - window + 1) : 0;
 
   float m = NEG_INF, l = 0.f;
-  float acc[HD];
+  float acc[DH];                     // columns SPLIT * d + part
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();                 // the previous tile has been consumed
-    for (int i = tid; i < BK * HD; i += BQ) {
+    for (int i = tid; i < BK * HD; i += NT) {
       const int s = k0 + i / HD;
       const long long off = (((long long)b * S + s) * KV + kvh) * HD + i % HD;
       k_s[i] = s < S ? k[off] : 0.f;
@@ -95,10 +104,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < BK; ++j) sc[j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float qd = q_s[tid * QS + d];
+    for (int d = 0; d < DH; ++d) {
+      const int col = SPLIT * d + part;
+      const float qd = q_s[r * QS + col];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) sc[j] = fmaf(qd, k_s[j * HD + d], sc[j]);
+      for (int j = 0; j < BK; ++j) sc[j] = fmaf(qd, k_s[j * HD + col], sc[j]);
+    }
+    if constexpr (SPLIT == 2) {
+#pragma unroll
+      for (int j = 0; j < BK; ++j) sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 1);
     }
 
     float m_cur = NEG_INF;
@@ -118,14 +132,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     l = alpha * l + psum;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+    for (int d = 0; d < DH; ++d) acc[d] *= alpha;
     // j is a loop, not unrolled: the probabilities come back from shared
-    // memory, which keeps the unrolled body at HD FMAs (and the build short)
+    // memory, which keeps the unrolled body at DH FMAs (and the build short)
 #pragma unroll 2
     for (int j = 0; j < BK; ++j) {
       const float p = p_s[tid * PS + j];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, v_s[j * HD + d], acc[d]);
+      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, v_s[j * HD + SPLIT * d + part], acc[d]);
     }
     m = m_new;
   }
@@ -134,40 +148,45 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float denom = l == 0.f ? 1.f : l;
   __syncthreads();
 #pragma unroll
-  for (int d = 0; d < HD; ++d) q_s[tid * QS + d] = acc[d] / denom;
+  for (int d = 0; d < DH; ++d) q_s[r * QS + SPLIT * d + part] = acc[d] / denom;
   __syncthreads();
-  for (int i = tid; i < BQ * HD; i += BQ) {
-    const int r = i / HD, c = i % HD, s = q0 + r;
-    if (s < S) o[(((long long)b * S + s) * H + h) * HD + c] = q_s[r * QS + c];
+  for (int i = tid; i < BQ * HD; i += NT) {
+    const int rr = i / HD, c = i % HD, s = q0 + rr;
+    if (s < S) o[(((long long)b * S + s) * H + h) * HD + c] = q_s[rr * QS + c];
   }
 }
 
-template <int HD, int BK>
+template <int HD, int BK, int SPLIT = 1>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int S, int H, int KV, int causal, int window, cudaStream_t stream) {
+                   int S, int H, int KV, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  constexpr int NT = BQ * SPLIT;
   const int smem =
-      (BQ * (HD + 1) + BQ * (BK + 1) + 2 * BK * HD) * static_cast<int>(sizeof(float));
-  auto kern = flash_fwd_kernel<HD, BK>;
+      (BQ * (HD + 1) + NT * (BK + 1) + 2 * BK * HD) * static_cast<int>(sizeof(float));
+  auto kern = flash_fwd_kernel<HD, BK, SPLIT>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kern<<<grid, BQ, smem, stream>>>(
+  kern<<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal, window,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B,
-                     int S, int H, int KV, int hd, int causal, int window,
+                     int S, int H, int KV, int hd, int causal, int window, float scale,
                      cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<32, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 64: return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    // 80 + 64 floats of accumulator and scores, under HD = 128's 160
-    case 80: return launch<80, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 128: return launch<128, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 32: return launch<32, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 64: return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    // 80 or 96 + 64 floats of accumulator and scores, up to HD = 128's 160
+    case 80: return launch<80, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 96: return launch<96, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 128: return launch<128, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    // a row over two threads: 128 + 32 floats each
+    case 256:
+      return launch<256, 32, 2>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -175,10 +194,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous fp32.
-// hd in {32, 64, 80, 128}.
+// hd in {32, 64, 80, 96, 128, 256}; scale multiplies Q.K^T (1/sqrt of the
+// head dim before any padding).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int H, int KV, int hd, int causal,
-                         int window, void* stream) {
-  return static_cast<int>(dispatch(q, k, v, o, B, S, H, KV, hd, causal, window,
+                         int window, float scale, void* stream) {
+  return static_cast<int>(dispatch(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
                                    static_cast<cudaStream_t>(stream)));
 }

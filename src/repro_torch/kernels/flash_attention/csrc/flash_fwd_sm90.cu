@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_flash_kernel, launched by flash_attention_fwd) for 16-bit inputs: GQA
-// attention with an online softmax, scale 1/sqrt(hd), causal / bidirectional
+// attention with an online softmax, scale 1/sqrt(hd) (passed in, so that a
+// head dim the wrapper zero-pads keeps its own scale), causal / bidirectional
 // / sliding-window mask plus a tail mask at seq_len, fully masked key tiles
 // skipped, fp32 running max / denominator / accumulator, rows with no valid
 // key -> 0, output in the input dtype. fp32 inputs go to flash_fwd.cu.
@@ -41,11 +42,15 @@
 //   - the epilogue divides by the row sum (by 1 where it is 0), stages the
 //     tile in shared memory and writes it with coalesced 16-byte stores,
 //     rows past S left out.
-// Head dims 32 (64-byte swizzle), 64 (128-byte), 128 (two 128-byte
+// Head dims 32 (64-byte swizzle), 64 (128-byte), 96 (three 32-column
+// atoms with the 64-byte swizzle), 128 and 256 (two or four 128-byte
 // swizzle atoms side by side) and 80 (hubert-xlarge: five 16-column atoms
-// with the 32-byte swizzle, so that no column is padded or copied; each
-// k-step of Q.K^T is one whole atom, and P.V is one m64n80k16 wgmma a step
-// whose B operand steps over the five atoms by its leading byte offset).
+// with the 32-byte swizzle, so that no column is padded or copied); P.V is
+// one m64nHDk16 wgmma a step whose B operand steps over the atoms by its
+// leading byte offset. Every other head dim up to 256 is zero-padded by the
+// wrapper to the next of these (zero columns add exactly 0 to Q.K^T). At
+// HD = 256 a consumer thread holds 128 accumulator registers and a block
+// ~194 KB of shared memory, so one block runs an SM.
 //
 // Entry point: flash_fwd_sm90(...) with a plain C interface (loaded with
 // ctypes), launching on the given stream and returning cudaGetLastError().
@@ -69,10 +74,10 @@ using ValidMask = std::conditional_t<(BK / 2 > 32), uint64_t, uint32_t>;
 
 template <int HD>
 struct Layout {
-  // columns per swizzle atom: 64 where they divide HD, else the whole row
-  // (HD = 32), else 16 (HD = 80, whose 160-byte rows no 64- or 128-byte
-  // atom covers)
-  static constexpr int ATOM = HD % 64 == 0 ? 64 : HD == 32 ? 32 : 16;
+  // columns per swizzle atom: 64 where they divide HD, else 32 (HD = 32,
+  // 96), else 16 (HD = 80, whose 160-byte rows no 64- or 128-byte atom
+  // covers)
+  static constexpr int ATOM = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int NATOM = HD / ATOM;
   static_assert(HD % ATOM == 0 && HD % 16 == 0, "head dim");
   static constexpr int ROWB = ATOM * 2;           // bytes per row of an atom
@@ -144,7 +149,7 @@ __device__ __forceinline__ void softmax_step(float (&sc)[BK / 2], float (&m)[2],
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : HD <= 80 ? 3 : 2)
+__global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : HD <= 80 ? 3 : HD <= 128 ? 2 : 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S,
@@ -291,7 +296,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           int causal, int window, cudaStream_t stream) {
+           int causal, int window, float scale, cudaStream_t stream) {
   using L = Layout<HD>;
   const uint64_t hd = HD, e = 2, s = S, b = B, nh = H, nkv = KV;
   const uint32_t atom = L::ATOM;
@@ -316,7 +321,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   }
   if (ce != cudaSuccess) return ce;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
-  const float scale_log2 = static_cast<float>(1.4426950408889634 / std::sqrt(double(HD)));
+  const float scale_log2 = static_cast<float>(1.4426950408889634 * double(scale));
   kern<<<grid, NTHREADS, L::SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H, KV, causal,
                                             window, scale_log2);
   return cudaGetLastError();
@@ -324,12 +329,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-             int KV, int hd, int causal, int window, cudaStream_t stream) {
+             int KV, int hd, int causal, int window, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, stream);
+    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -338,11 +345,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous, 16-byte
 // aligned, of one dtype: bf16 (is_f16 = 0) or fp16 (is_f16 = 1).
-// hd in {32, 64, 80, 128}.
+// hd in {32, 64, 80, 96, 128, 256}; scale multiplies Q.K^T (1/sqrt of the
+// head dim before any padding).
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
                               int S, int H, int KV, int hd, int causal, int window,
-                              int is_f16, void* stream) {
+                              int is_f16, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f16 ? dispatch<__half>(q, k, v, o, B, S, H, KV, hd, causal, window, st)
-                : dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
+  return is_f16 ? dispatch<__half>(q, k, v, o, B, S, H, KV, hd, causal, window, scale, st)
+                : dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
+                                          st);
 }

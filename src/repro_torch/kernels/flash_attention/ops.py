@@ -11,6 +11,12 @@ On the H100 the function is bound by its operations (about 17 GFLOP at B=4,
 S=1024, H=32, KV=4, hd=64, causal, against 38 MB of traffic). See the notes
 at the heads of the sources.
 
+Both kernels are built for head dims ``WIDTHS``. Any other head dim up to
+256 is zero-padded to the next of them: q and k on the contracted axis, v
+on the output axis, with the scale of the true width; the output is sliced
+back. Zero columns add exactly 0 to q.k, so padding changes no result.
+Above 256 (wgmma's largest n) the wrapper raises.
+
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
 
@@ -22,6 +28,7 @@ the reference has no backward kernel either.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 
 import torch
@@ -30,8 +37,9 @@ from ..build import load
 from .ref import attention_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-HEAD_DIMS = (32, 64, 80, 128)
-#: dtype -> (source, C entry point, trailing int arguments before the stream)
+#: head dims the kernels are built for; any other up to the last is padded
+WIDTHS = (32, 64, 80, 96, 128, 256)
+#: dtype -> (source, C entry point, trailing int arguments before the scale)
 ROUTES = {
     torch.bfloat16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (0,)),
     torch.float16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (1,)),
@@ -53,7 +61,7 @@ def _entry(source, name, n_extra):
     fn = getattr(load(source), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 + n_extra)
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -74,18 +82,44 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v must be on one device")
 
 
+def padded_width(hd):
+    """The kernel width that head dim ``hd`` runs at: the least of
+    ``WIDTHS`` that is at least ``hd``."""
+    for w in WIDTHS:
+        if hd <= w:
+            return w
+    raise ValueError(f"flash_attention: head_dim {hd} over {WIDTHS[-1]}, wgmma's largest n "
+                     f"(ROADMAP.md, Queue 2, K1: head dims over 256)")
+
+
+def run_padded(q, k, v, causal, window, fn):
+    """``fn(q, k, v, causal, window, scale)`` at the kernel width of q's head
+    dim: q, k and v zero-padded on the last axis up to ``padded_width``,
+    ``scale`` = 1/sqrt(true head dim), and the output sliced back."""
+    hd = q.shape[-1]
+    pad = padded_width(hd) - hd
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    out = fn(q, k, v, causal, window, 1.0 / math.sqrt(hd))
+    return out[..., :hd].contiguous() if pad else out
+
+
 def _forward(q, k, v, causal, window):
     """The forward: the plain version on the CPU, else the kernel."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
-    source, name, extra = route(q.dtype)
+    route(q.dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    return run_padded(q, k, v, causal, window, _launch)
+
+
+def _launch(q, k, v, causal, window, scale):
+    """One launch of the kernel of q's dtype at a width in ``WIDTHS``."""
+    B, S, H, hd = q.shape
+    source, name, extra = route(q.dtype)
     if S == 0 or B == 0:
         raise ValueError("flash_attention: empty batch or sequence")
     if name == "flash_fwd_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -95,7 +129,8 @@ def _forward(q, k, v, causal, window):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, stream)
+                 B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, scale,
+                 stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
     flash_attention.launches += 1

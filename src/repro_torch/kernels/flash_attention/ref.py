@@ -8,12 +8,15 @@ import math
 import torch
 
 
-def attention_ref(q, k, v, *, causal=True, window=0):
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """``scale`` multiplies q.k (default 1/sqrt(hd)): the kernels' wrapper
+    zero-pads hd and passes the scale of the unpadded width."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     qg = q.reshape(B, S, KV, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
     mask = (kpos <= qpos) if causal else torch.ones((S, S), dtype=torch.bool,

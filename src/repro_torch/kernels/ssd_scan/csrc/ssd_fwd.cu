@@ -34,6 +34,14 @@
 // transposed ([n][row]) for the products over n, B natural ([row][n]) for
 // the state update.
 //
+// Shapes past the serving ones: a chunk longer than QMAX = 256 is walked as
+// sub-chunks of 256 steps (the last one shorter), the state carried across
+// them as across chunks: the same recurrence, only the rounding differs.
+// N up to 256 takes P-tiles of 32 columns (at 64 its shared memory would be
+// 232,448 bytes, the whole of what a block may use; at 32, 191,488). The
+// last P-tile may be ragged, so any P is taken (x is read an element at a
+// time).
+//
 // Entry point: ssd_fwd(...) with a plain C interface (loaded with ctypes),
 // launching on the given stream and returning cudaGetLastError().
 #include <atomic>
@@ -44,9 +52,9 @@ namespace {
 
 constexpr int NT = 256;       // threads per block
 constexpr int TILE = 64;      // rows of a chunk tile
-constexpr int QMAX = 256;     // longest chunk taken
-constexpr int NMAX = 128;     // largest state dimension taken
-constexpr int PTMAX = 64;     // widest P-tile
+constexpr int QMAX = 256;     // longest (sub-)chunk a block walks at once
+constexpr int NMAX = 256;     // largest state dimension taken
+constexpr int PTMAX = 64;     // widest P-tile (32 where N > 128)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -80,14 +88,15 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src, in
   }
 }
 
-// xs[c][p] = x[j0 + c, p] * dt[j0 + c] for the block's head and P-tile
+// xs[c][p] = x[j0 + c, p] * dt[j0 + c] for the block's head and P-tile (pv
+// valid columns of PT)
 template <typename T>
 __device__ __forceinline__ void load_xdt(float* xs, const T* x, const float* dts,
                                          long long row0, int j0, int Q, int H, int h,
-                                         int P, int p_base, int PT, int tid) {
+                                         int P, int p_base, int PT, int pv, int tid) {
   for (int e = tid; e < TILE * PT; e += NT) {
     const int c = e / PT, p = e % PT;
-    xs[e] = j0 + c < Q
+    xs[e] = j0 + c < Q && p < pv
                 ? to_f32(x[((row0 + j0 + c) * H + h) * P + p_base + p]) * dts[j0 + c]
                 : 0.f;
   }
@@ -112,6 +121,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   const int tid = threadIdx.x;
   const int p_base = blockIdx.x * PT;
+  const int pv = min(PT, P - p_base);    // valid columns of this P-tile
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const float d_h = Dv[h];
@@ -121,16 +131,22 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const bool owns_y = mc < PT;
   const int nq = N / 4;
   const int n_state = nq * (PT / 4);     // 4x4 micro-tiles of the state, <= 2 * NT
-  const int n_tiles = (Q + TILE - 1) / TILE;
+  // units: sub-chunk u % nsub (QMAX steps, the last one shorter) of chunk
+  // u / nsub, in order
+  const int nsub = (Q + QMAX - 1) / QMAX;
+  const int Qc = Q;
 
   for (int e = tid; e < N * PT; e += NT) hs[e] = 0.f;
 
-  for (int ci = 0; ci < nc; ++ci) {
-    const long long row0 = (static_cast<long long>(b) * nc + ci) * Q;
+  for (int u = 0; u < nc * nsub; ++u) {
+    const int s_first = u % nsub * QMAX;
+    const long long row0 = (static_cast<long long>(b) * nc + u / nsub) * Qc + s_first;
+    const int Q = min(QMAX, Qc - s_first);    // this unit's steps
+    const int n_tiles = (Q + TILE - 1) / TILE;
     const float* Bc = Bm + row0 * N;
     const float* Cc = Cm + row0 * N;
-    __syncthreads();   // the previous chunk is done with lc and the state
-    if (tid < 32) {    // warp 0: inclusive prefix sum of la over the chunk
+    __syncthreads();   // the previous unit is done with lc and the state
+    if (tid < 32) {    // warp 0: inclusive prefix sum of la over the unit
       const int per = (Q + 31) / 32;
       const int s0 = tid * per, s1 = min(s0 + per, Q);
       float run = 0.f;
@@ -177,7 +193,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int j0 = jt * TILE;
         __syncthreads();   // bt, xs, ws are free
         load_transposed(bt, Bc, j0, Q, N, tid);
-        load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, tid);
+        load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, pv, tid);
         __syncthreads();
         float s[4][4] = {};
 #pragma unroll 4
@@ -213,7 +229,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       __syncthreads();
       for (int e = tid; e < TILE * PT; e += NT) {
         const int r = e / PT, p = e % PT;
-        if (i0 + r < Q) {
+        if (i0 + r < Q && p < pv) {
           const long long off = ((row0 + i0 + r) * H + h) * P + p_base + p;
           store(y + off, ws[e] + d_h * to_f32(x[off]));
         }
@@ -235,7 +251,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         }
         *reinterpret_cast<float4*>(bt + c * N + n) = v;
       }
-      load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, tid);
+      load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, pv, tid);
       __syncthreads();
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -270,7 +286,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
   for (int e = tid; e < N * PT; e += NT) {
     const int n = e / PT, p = e % PT;
-    h_last[((static_cast<long long>(b) * H + h) * N + n) * P + p_base + p] = hs[e];
+    if (p < pv) h_last[((static_cast<long long>(b) * H + h) * N + n) * P + p_base + p] = hs[e];
   }
 }
 
@@ -278,7 +294,10 @@ template <typename T>
 cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
                    const void* la, const void* D, void* y, void* h_last, int b, int nc,
                    int Q, int H, int P, int N, cudaStream_t stream) {
-  const int PT = P < PTMAX ? P : PTMAX;
+  // P-tiles of up to 64 columns (32 where N > 128), a multiple of 4 (the
+  // micro-tiles), the last one ragged
+  const int pt_max = N > NMAX / 2 ? PTMAX / 2 : PTMAX;
+  const int PT = P < pt_max ? (P + 3) / 4 * 4 : pt_max;
   const int smem = (3 * QMAX + 2 * N * TILE + N * PT + TILE * PT + TILE * TILE) *
                    static_cast<int>(sizeof(float));
   auto kern = ssd_fwd_kernel<T>;
@@ -288,13 +307,13 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && smem_set_on.load() != dev) {
-    const int most = (3 * QMAX + 2 * NMAX * TILE + NMAX * PTMAX + TILE * PTMAX + TILE * TILE) *
-                     static_cast<int>(sizeof(float));
+    const int most = (3 * QMAX + 2 * NMAX * TILE + NMAX * (PTMAX / 2) + TILE * (PTMAX / 2) +
+                      TILE * TILE) * static_cast<int>(sizeof(float));
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err == cudaSuccess) smem_set_on.store(dev);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid(P / PT, H, b);
+  const dim3 grid((P + PT - 1) / PT, H, b);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(la),
@@ -307,14 +326,12 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
 
 // x (b,nc,Q,H,P) and y (b,nc*Q,H,P), dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D
 // (H,) and h_last (b,H,N,P), all fp32 and contiguous, B and C 16-byte
-// aligned. 1 <= Q <= 256; N a multiple of 4 up to 128; P a multiple of 4 up
-// to 64, or a multiple of 64.
+// aligned. Q >= 1; N a multiple of 4 up to 256; P >= 1.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* B, const void* C,
                        const void* la, const void* D, void* y, void* h_last, int b,
                        int nc, int Q, int H, int P, int N, void* stream) {
-  const bool ok = b > 0 && nc > 0 && Q >= 1 && Q <= QMAX && H > 0 && N >= 4 &&
-                  N <= NMAX && N % 4 == 0 && P >= 4 && P % 4 == 0 &&
-                  (P <= PTMAX || P % PTMAX == 0);
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N <= NMAX && N % 4 == 0 &&
+                  P >= 1;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<float>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N,
                                         static_cast<cudaStream_t>(stream)));

@@ -1,16 +1,18 @@
-// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), x in bf16, every
-// product on the tensor cores in TF32.
+// Mamba2 SSD chunked scan, forward, for Hopper (sm_90a), x in bf16 or fp16,
+// every product on the tensor cores in TF32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
-// (_ssd_kernel, launched by ssd_scan_fwd) for bf16 x; fp32 x goes to the
-// exact ssd_fwd.cu. It computes what that kernel computes. For each chunk
+// (_ssd_kernel, launched by ssd_scan_fwd) for bf16 and fp16 x; fp32 x goes
+// to the exact ssd_fwd.cu. It computes what that kernel computes. For each chunk
 // of Q steps, in order, with the fp32 state h (N, P) carried from chunk to
 // chunk:
 //   lcum = cumsum(la)
 //   y    = (W).x + (C.h) * exp(lcum) + D * x,   W = (C.B^T) o L o dt_j,
 //          L[i,j] = exp(lcum_i - lcum_j) for j <= i, else 0
 //   h    = h * exp(lcum_last) + (B o dt * exp(lcum_last - lcum))^T.x
-// D.x is added in fp32 before the one cast to bf16; h_last is fp32.
+// D.x is added in fp32 before the one cast to x's type; h_last is fp32.
+// fp16 x is exact in TF32 as bf16 x is (10 and 7 mantissa bits against
+// TF32's 10), so both types take the same products.
 //
 // What bounds it on the H100: bytes. At the mamba2-2.7b serving shape (b=4,
 // nc=4, Q=256, H=80, P=64, N=128) it moves ~101 MB (x read and y written
@@ -31,7 +33,7 @@
 // (ssd_fwd.cu):
 //   - C.B^T once per (batch, chunk), not once per head: a first kernel,
 //     ssd_cb_kernel, computes the causal 64 x 64 tile pairs of CB = C.B^T
-//     (a TF32 wgmma over N) into an fp32 scratch buffer (b*nc, QT, QT) that
+//     (a TF32 wgmma over N) into an fp32 scratch buffer (units, QT, QT) that
 //     stays in L2 (4.2 MB at the serving shape); the TPU kernel gets the
 //     same by broadcasting B and C over its head axis;
 //   - tensor cores: the scan kernel runs the inter term C_i.h, the intra
@@ -61,7 +63,18 @@
 //   - launch overhead: the shared-memory limits are set once per device.
 // One block per (P-tile of 32 or 64 columns, head, batch), ~220 KB of
 // shared memory at PT = 64, so one block an SM: 320 blocks at the serving
-// shape, 2.4 waves on 132 SMs. Two faster forms were dropped: the loader
+// shape, 2.4 waves on 132 SMs. The last P-tile may be ragged (P = 96: 64 +
+// 32 columns).
+// Shapes past the serving ones:
+//   - a chunk longer than QMAX = 256 steps is walked as sub-chunks of 256
+//     (the last one shorter), the state carried across them in registers
+//     as across chunks. It is the same recurrence (only the rounding
+//     differs); C.B^T is computed per sub-chunk. Every loop below runs
+//     over these units (chunk, sub-chunk);
+//   - N up to 256: a B or C tile is 8 atoms (4 ring slots), the state four
+//     64-row tiles, two a warpgroup. Shared memory at PT = 64 would pass
+//     the 227 KB a block may use, so N > 128 takes PT = 32 (~164 KB).
+//     Columns of N past a multiple of 32 load as zeros. Two faster forms were dropped: the loader
 // warp computing the step vectors (lc, scl, vdt) for the next chunk, and
 // persistent blocks that walk several (P-tile, head, batch) units. Each
 // wrote wrong rows of y (and h) at random on shapes with 2-3 row tiles a
@@ -80,8 +93,8 @@ namespace {
 using namespace hopper;
 
 constexpr int TILE = 64;           // rows of a chunk tile
-constexpr int QMAX = 256;          // longest chunk taken
-constexpr int NMAX = 128;          // largest state dimension taken
+constexpr int QMAX = 256;          // longest (sub-)chunk a block walks at once
+constexpr int NMAX = 256;          // largest state dimension taken
 constexpr int ATOM_BYTES = TILE * 128;  // 64 rows of one 128-byte swizzle atom
 constexpr int SLOT = 2 * ATOM_BYTES;     // a ring slot: two atoms, 64 x 64 fp32
 constexpr int STAGES = 2;               // depth of each consumer warpgroup's TMA ring
@@ -96,6 +109,9 @@ __device__ __forceinline__ uint32_t swz(int row, int col, int rows) {
   return (col >> 5) * rows * 128 + row * 128 + ((((col & 31) >> 2) ^ (row & 7)) << 4) +
          ((col & 3) << 2);
 }
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ float lds(const uint8_t* base, uint32_t off) {
   return *reinterpret_cast<const float*>(base + off);
@@ -162,22 +178,24 @@ __device__ __forceinline__ uint64_t tile_desc(const void* tile) {
 template <int NA>
 inline constexpr int SLOTS = (NA + 1) / 2;
 
-// ---- CB = C.B^T, once per (batch, chunk) ------------------------------------
-// Block (tile pair, batch*chunk): rows it, columns jt <= it of CB, one TF32
-// wgmma chain over N (both operands K-major: n is contiguous in B and C).
-constexpr int CB_SMEM = 1024 + 2 * (NMAX / 32) * ATOM_BYTES + 8;
+// ---- CB = C.B^T, once per (batch, chunk, sub-chunk) -------------------------
+// Block (tile pair, unit): rows it, columns jt <= it of CB, one TF32 wgmma
+// chain over N (both operands K-major: n is contiguous in B and C). Unit u
+// is sub-chunk u % nsub (rows from QMAX * (u % nsub)) of chunk u / nsub.
+template <int NA>
+inline constexpr int CB_SMEM = 1024 + 2 * NA * ATOM_BYTES + 8;
 
 template <int NA>
 __global__ void __launch_bounds__(WG)
 ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap tb,
-              float* __restrict__ cb, int QT) {
+              float* __restrict__ cb, int QT, int nsub) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sc = align1024(smem_raw);
   uint8_t* sb = sc + NA * ATOM_BYTES;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sb + NA * ATOM_BYTES);
   int it = 0, jt = blockIdx.x;
   while (jt > it) jt -= ++it;      // the blockIdx.x-th causal pair (it, jt)
-  const int bc = blockIdx.y;
+  const int bc = blockIdx.y / nsub, s0 = blockIdx.y % nsub * QMAX;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   if (tid == 0) {
@@ -189,8 +207,8 @@ ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CU
     mbar_arrive_expect_tx(bar, 2 * NA * ATOM_BYTES);
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
-      tma_load_3d(sc + a * ATOM_BYTES, &tc, bar, 32 * a, it * TILE, bc);
-      tma_load_3d(sb + a * ATOM_BYTES, &tb, bar, 32 * a, jt * TILE, bc);
+      tma_load_3d(sc + a * ATOM_BYTES, &tc, bar, 32 * a, s0 + it * TILE, bc);
+      tma_load_3d(sb + a * ATOM_BYTES, &tb, bar, 32 * a, s0 + jt * TILE, bc);
     }
   }
   mbar_wait(bar, 0);
@@ -207,7 +225,8 @@ ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CU
   fence_regs(d);
 
   const int row = it * TILE + 16 * warp + lane / 4;
-  float* out = cb + (static_cast<long long>(bc) * QT + row) * QT + jt * TILE + 2 * (lane % 4);
+  float* out =
+      cb + (static_cast<long long>(blockIdx.y) * QT + row) * QT + jt * TILE + 2 * (lane % 4);
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -218,15 +237,16 @@ ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CU
 
 // ---- the scan ---------------------------------------------------------------
 
-template <int PT>
+template <int PT, int NA>
 struct ScanLayout {
   static constexpr int XP = PT * 2 + 16;              // x staging pitch, bytes: rows
                                                       // shift banks by 4 words
   static constexpr int RING = 2 * STAGES * SLOT;      // one ring a warpgroup
-  static constexpr int HT = (NMAX / 32) * PT * 128;   // h^T [p][n], swizzled
+  // h^T [p][n], swizzled: the state's 64-row tiles, at least one (NA <= 2)
+  static constexpr int HT = (NA > 2 ? NA : 2) * PT * 128;
   static constexpr int XT = (QMAX / 32) * PT * 128;   // x^T [p][j] fp32, swizzled
-  static constexpr int XS = QMAX * XP;                // x [j][p] bf16, as loaded
-  static constexpr int YS = 2 * TILE * PT * 2;        // a y tile [i][p] bf16 a warpgroup,
+  static constexpr int XS = QMAX * XP;                // x [j][p] 16-bit, as loaded
+  static constexpr int YS = 2 * TILE * PT * 2;        // a y tile [i][p] 16-bit a warpgroup,
                                                       // swizzled as y's tensor map
   // lc, scl, vdt; dt and la of two chunks (this one and the next, loading)
   static constexpr int VEC = 7 * QMAX * 4;
@@ -267,17 +287,17 @@ __device__ __forceinline__ void release(uint64_t* empty, int n) {
   mbar_arrive(&empty[n % STAGES]);
 }
 
-// A chunk's inputs of this head and P-tile into shared memory by cp.async,
+// A unit's inputs of this head and P-tile into shared memory by cp.async,
 // issued by the 32 lanes of the loader warp, each of which then arrives on
-// `bar` once its copies have landed: rows [0, Q) of x into the staging
-// buffer (16 bytes a copy where x's rows allow it, else 8), dt and la.
-template <int PT>
-__device__ __forceinline__ void load_chunk(uint8_t* xs, float* dtb, float* lab,
-                                           const __nv_bfloat16* x, const float* dt,
-                                           const float* la, long long row0, int Q, int H,
-                                           int h, int P, int p0, int pv, bool x16,
-                                           int lane, uint64_t* bar) {
-  constexpr int XP = ScanLayout<PT>::XP;
+// `bar` once its copies have landed: rows [0, Q) from row0 of x into the
+// staging buffer (16 bytes a copy where x's rows allow it, else 8), dt and
+// la.
+template <int PT, typename T>
+__device__ __forceinline__ void load_chunk(uint8_t* xs, float* dtb, float* lab, const T* x,
+                                           const float* dt, const float* la, long long row0,
+                                           int Q, int H, int h, int P, int p0, int pv,
+                                           bool x16, int lane, uint64_t* bar) {
+  constexpr int XP = PT * 2 + 16;
   if (x16) {  // pv is a multiple of 8
     for (int j = lane / (PT / 8); j < Q; j += 32 / (PT / 8)) {
       const int q = lane % (PT / 8);
@@ -396,20 +416,21 @@ __device__ __forceinline__ void mma_xt(float (&acc)[PT / 2], uint32_t (&a)[8][4]
   wgmma_commit();
 }
 
-template <int PT, int NA>
+template <typename T, int PT, int NA>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
                      const __grid_constant__ CUtensorMap tb,
                      const __grid_constant__ CUtensorMap tcb,
                      const __grid_constant__ CUtensorMap ty, int y_tma,
-                     const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+                     const T* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ la, const float* __restrict__ Dv,
-                     __nv_bfloat16* __restrict__ y, float* __restrict__ h_last, int nc,
+                     T* __restrict__ y, float* __restrict__ h_last, int nc,
                      int Q, int H, int P, int N) {
-  using L = ScanLayout<PT>;
-  constexpr int ND = PT / 2;         // accumulator registers of a 64 x PT tile
-  constexpr int SPT = SLOTS<NA>;     // ring slots of a B or C tile
-  constexpr int MT = NA > 2 ? 2 : 1; // 64-row tiles of the state (n)
+  using L = ScanLayout<PT, NA>;
+  constexpr int ND = PT / 2;           // accumulator registers of a 64 x PT tile
+  constexpr int SPT = SLOTS<NA>;       // ring slots of a B or C tile
+  constexpr int NST = NA > 2 ? NA / 2 : 1;   // 64-row tiles of the state (n)
+  constexpr int MW = NST > 1 ? NST / 2 : 1;  // of them a warpgroup holds
   extern __shared__ uint8_t smem_raw[];
   uint8_t* rings = align1024(smem_raw);
   uint8_t* ht = rings + L::RING;
@@ -420,27 +441,33 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
   float* scl = lc + QMAX;                              // dt * 2^(lc_last - lc)
   float* vdt = scl + QMAX;                             // dt * 2^(lc_R - lc), R: the
                                                        // last step of its 64-row tile
-  float* dtb = vdt + QMAX;                             // dt, two chunks
-  float* lab = dtb + 2 * QMAX;                         // la, two chunks
+  float* dtb = vdt + QMAX;                             // dt, two units
+  float* lab = dtb + 2 * QMAX;                         // la, two units
   uint64_t* fulls = reinterpret_cast<uint64_t*>(lab + 2 * QMAX);
   uint64_t* emptys = fulls + 2 * STAGES;
-  uint64_t* in_full = emptys + 2 * STAGES;  // a chunk's x, dt, la have landed
+  uint64_t* in_full = emptys + 2 * STAGES;  // a unit's x, dt, la have landed
   uint64_t* in_empty = in_full + 1;         // the consumers are done with the staged x
 
   const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
-  const int nt = (Q + TILE - 1) / TILE, QT = nt * TILE;
+  // the units: sub-chunk u % nsub (QMAX steps, the last one shorter) of
+  // chunk u / nsub, in order; a unit's first step is s0 in its chunk
+  const int nsub = (Q + QMAX - 1) / QMAX, nu = nc * nsub;
+  auto unit_len = [=](int u) { return min(QMAX, Q - u % nsub * QMAX); };
+  auto unit_row0 = [=](int u) {  // the unit's first row of x, dt, la, y
+    return (static_cast<long long>(b) * nc + u / nsub) * Q + u % nsub * QMAX;
+  };
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // Work of the two consumer warpgroups: row tiles it with (it ^ it / 2) % 2
-  // == wg ({0, 3} and {1, 2} at 4 tiles: 5 intra tiles each), and state rows
-  // n in [64 wg, 64 wg + 64) (all of them in warpgroup 0 when N <= 64). Each
-  // warpgroup has its own ring and producer warp, loading its tiles in the
-  // order it takes them.
+  // == wg ({0, 3} and {1, 2} at 4 tiles: 5 intra tiles each), and the
+  // state's 64-row tiles: rows n in [64 MW wg, 64 MW (wg + 1)) (all of them
+  // in warpgroup 0 when N <= 64). Each warpgroup has its own ring and
+  // producer warp, loading its tiles in the order it takes them.
   const int wg = min(warp / 4, 1);
   uint8_t* ring = rings + wg * STAGES * SLOT;
   uint64_t* full = fulls + wg * STAGES;
   uint64_t* empty = emptys + wg * STAGES;
-  const bool has_state = MT == 2 || wg == 0;
-  const int nb = MT == 2 ? TILE * wg : 0;  // first state row n of this warpgroup
+  const bool has_state = NST > 1 || wg == 0;
+  const int nb = NST > 1 ? TILE * MW * wg : 0;  // first state row n of this warpgroup
   auto owns = [wg](int it) { return ((it ^ (it >> 1)) & 1) == wg; };
 
   if (tid == 0) {
@@ -456,70 +483,77 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
 
   const int pv = min(PT, P - p0);    // valid columns of this P-tile
   if (warp == NCONS / 32 + 2) {
-    // loader: chunk ci's x, dt and la, once the consumers are done with
-    // chunk ci - 1's staged x (dt and la alternate between two buffers)
+    // loader: unit u's x, dt and la, once the consumers are done with unit
+    // u - 1's staged x (dt and la alternate between two buffers)
     const bool x16 = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    for (int ci = 0; ci < nc; ++ci) {
-      if (ci > 0) mbar_wait(in_empty, (ci - 1) & 1);
-      load_chunk<PT>(xs, dtb + (ci & 1) * QMAX, lab + (ci & 1) * QMAX, x, dt, la,
-                     (static_cast<long long>(b) * nc + ci) * Q, Q, H, h, P, p0, pv, x16,
-                     lane, in_full);
+    for (int u = 0; u < nu; ++u) {
+      if (u > 0) mbar_wait(in_empty, (u - 1) & 1);
+      load_chunk<PT>(xs, dtb + (u & 1) * QMAX, lab + (u & 1) * QMAX, x, dt, la, unit_row0(u),
+                     unit_len(u), H, h, P, p0, pv, x16, lane, in_full);
     }
     return;
   }
   if (warp >= NCONS / 32) {
     // producer of ring warp - 8: the C tile and CB tiles j <= i of each row
-    // tile its warpgroup owns, then its B tile slots, chunk after chunk
+    // tile its warpgroup owns, then its B tile slots, unit after unit
     const int w = warp - NCONS / 32;
     if (lane == 0) {
       ring = rings + w * STAGES * SLOT;
       full = fulls + w * STAGES;
       empty = emptys + w * STAGES;
       int n = 0;
-      for (int ci = 0; ci < nc; ++ci) {
-        const int bc = b * nc + ci;
+      for (int u = 0; u < nu; ++u) {
+        const int bc = b * nc + u / nsub, s0 = u % nsub * QMAX;
+        const int cbu = b * nu + u, nt = (unit_len(u) + TILE - 1) / TILE;
         for (int it = 0; it < nt; ++it) {
           if (((it ^ (it >> 1)) & 1) != w) continue;
           for (int sp = 0; sp < SPT; ++sp)
-            produce_slot(ring, full, empty, n, &tc, 2 * sp, NA < 2 ? NA : 2, it * TILE, bc);
+            produce_slot(ring, full, empty, n, &tc, 2 * sp, NA < 2 ? NA : 2, s0 + it * TILE,
+                         bc);
           for (int jt = 0; jt <= it; ++jt)
-            produce_slot(ring, full, empty, n, &tcb, 2 * jt, 2, it * TILE, bc);
+            produce_slot(ring, full, empty, n, &tcb, 2 * jt, 2, it * TILE, cbu);
         }
-        if (MT == 2 || w == 0)
-          for (int jt = 0; jt < nt; ++jt)
-            produce_slot(ring, full, empty, n, &tb, MT == 2 ? 2 * w : 0, NA < 2 ? NA : 2,
-                         jt * TILE, bc);
+        if (NST > 1 || w == 0)
+          for (int m = 0; m < MW; ++m)
+            for (int jt = 0; jt < nt; ++jt)
+              produce_slot(ring, full, empty, n, &tb, NST > 1 ? 2 * (MW * w + m) : 0,
+                           NA < 2 ? NA : 2, s0 + jt * TILE, bc);
       }
     }
     return;
   }
 
   // consumers: this thread holds rows r0 and r0 + 8 of each 64-row tile
-  // (of the chunk for y, of n for the state), columns 8j + 2c + {0, 1}
+  // (of the unit for y, of n for the state), columns 8j + 2c + {0, 1}
   const int wtid = tid % WG;
   const int g = lane / 4, c = lane % 4, r0 = 16 * (warp % 4) + g;
   const float d_h = Dv[h];
   const uint64_t ht_desc = tile_desc(ht);
   const uint64_t xt_desc = tile_desc(xt);
   uint8_t* ys = yss + wg * TILE * PT * 2;
-  float hacc[ND];                    // this warpgroup's state rows, columns p
+  float hacc[MW][ND];                // this warpgroup's state rows, columns p
 #pragma unroll
-  for (int i = 0; i < ND; ++i) hacc[i] = 0.f;
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int i = 0; i < ND; ++i) hacc[m][i] = 0.f;
   int n = 0;                         // position in this warpgroup's ring
 
-  for (int s = Q + tid; s < QMAX; s += NCONS)  // steps past Q stay 0
+  // steps past the shortest unit stay 0 (a longer unit overwrites some)
+  for (int s = unit_len(nsub - 1) + tid; s < QMAX; s += NCONS)
     dtb[s] = dtb[QMAX + s] = lab[s] = lab[QMAX + s] = 0.f;
-  for (int ci = 0; ci < nc; ++ci) {
-    const long long row0 = (static_cast<long long>(b) * nc + ci) * Q;
-    const float* dts = dtb + (ci & 1) * QMAX;
-    const float* las = lab + (ci & 1) * QMAX;
-    mbar_wait(in_full, ci & 1);
-    consumer_sync();  // the last chunk is done with every buffer
-    if (warp == 0) {  // inclusive prefix sum of la over the chunk
-      const int per = (Q + 31) / 32;
-      const int s0 = lane * per, s1 = min(s0 + per, Q);
+  for (int u = 0; u < nu; ++u) {
+    const int Qu = unit_len(u), nt = (Qu + TILE - 1) / TILE, QT = nt * TILE;
+    const int bc = b * nc + u / nsub, s0 = u % nsub * QMAX;
+    const long long row0 = unit_row0(u);
+    const float* dts = dtb + (u & 1) * QMAX;
+    const float* las = lab + (u & 1) * QMAX;
+    mbar_wait(in_full, u & 1);
+    consumer_sync();  // the last unit is done with every buffer
+    if (warp == 0) {  // inclusive prefix sum of la over the unit
+      const int per = (Qu + 31) / 32;
+      const int s0l = lane * per, s1 = min(s0l + per, Qu);
       float run = 0.f;
-      for (int s = s0; s < s1; ++s) {
+      for (int s = s0l; s < s1; ++s) {
         run += las[s];
         lc[s] = run;
       }
@@ -530,8 +564,8 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
         if (lane >= off) incl += v;
       }
       const float before = incl - run;
-      for (int s = s0; s < s1; ++s) lc[s] = (lc[s] + before) * 1.4426950408889634f;
-      for (int s = Q + lane; s < QT; s += 32) lc[s] = 0.f;
+      for (int s = s0l; s < s1; ++s) lc[s] = (lc[s] + before) * 1.4426950408889634f;
+      for (int s = Qu + lane; s < QT; s += 32) lc[s] = 0.f;
     }
     // x^T [p][j] in fp32: a warp takes 32 rows j and 8 columns p, reading
     // 16 bytes a row (the staging pitch spreads them over the banks) and
@@ -542,38 +576,41 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
       for (int e0 = warp; e0 < items; e0 += U * NW) {
         uint4 raw[U];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int e = e0 + u * NW, j = (e / PB) * 32 + lane;
-          raw[u] = e < items && j < Q
-                       ? *reinterpret_cast<const uint4*>(xs + j * L::XP + 16 * (e % PB))
-                       : make_uint4(0, 0, 0, 0);
+        for (int uu = 0; uu < U; ++uu) {
+          const int e = e0 + uu * NW, j = (e / PB) * 32 + lane;
+          raw[uu] = e < items && j < Qu
+                        ? *reinterpret_cast<const uint4*>(xs + j * L::XP + 16 * (e % PB))
+                        : make_uint4(0, 0, 0, 0);
         }
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int e = e0 + u * NW, j = (e / PB) * 32 + lane, pc = (e % PB) * 8;
+        for (int uu = 0; uu < U; ++uu) {
+          const int e = e0 + uu * NW, j = (e / PB) * 32 + lane, pc = (e % PB) * 8;
           if (e >= items) break;
-          const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(&raw[u]);
+          const T* xv = reinterpret_cast<const T*>(&raw[uu]);
 #pragma unroll
           for (int r = 0; r < 8; ++r)
-            sts(xt, swz(pc + r, j, PT), pc + r < pv ? __bfloat162float(xb[r]) : 0.f);
+            sts(xt, swz(pc + r, j, PT), pc + r < pv ? to_f32(xv[r]) : 0.f);
         }
       }
     }
     // h^T [p][n] from this warpgroup's state rows
     if (has_state)
 #pragma unroll
-      for (int j = 0; j < ND / 4; ++j)
+      for (int m = 0; m < MW; ++m)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          sts(ht, swz(8 * j + 2 * c + (q & 1), nb + r0 + 8 * (q >> 1), PT), hacc[4 * j + q]);
+        for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            sts(ht, swz(8 * j + 2 * c + (q & 1), nb + TILE * m + r0 + 8 * (q >> 1), PT),
+                hacc[m][4 * j + q]);
     fence_async_smem();
     consumer_sync();
-    if (tid == 0) mbar_arrive(in_empty);  // the loader may stage the next chunk
-    const float lc_last = lc[Q - 1];
+    if (tid == 0) mbar_arrive(in_empty);  // the loader may stage the next unit
+    const float lc_last = lc[Qu - 1];
     for (int s = tid; s < QT; s += NCONS)
-      scl[s] = s < Q ? dts[s] * ex2(lc_last - lc[s]) : 0.f;
+      scl[s] = s < Qu ? dts[s] * ex2(lc_last - lc[s]) : 0.f;
     for (int s = tid; s < QT; s += NCONS)
-      vdt[s] = s < Q ? dts[s] * ex2(lc[min(s | (TILE - 1), Q - 1)] - lc[s]) : 0.f;
+      vdt[s] = s < Qu ? dts[s] * ex2(lc[min(s | (TILE - 1), Qu - 1)] - lc[s]) : 0.f;
     consumer_sync();
 
     // ---- y, this warpgroup's 64-row tiles -------------------------------
@@ -583,7 +620,9 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
       float acc[ND];
 #pragma unroll
       for (int i = 0; i < ND; ++i) acc[i] = 0.f;
-      {  // inter-chunk term: C_i [i][n] . h^T [p][n], one group a slot
+      {  // inter-chunk term: C_i [i][n] . h^T [p][n], one group a slot; a
+         // slot is released once its group is done (a C tile may take more
+         // slots than the ring has)
 #pragma unroll
         for (int sp = 0; sp < SPT; ++sp) {
           const uint8_t* ct = consume(ring, full, n + sp);
@@ -593,10 +632,10 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
             MmaTf32<PT>::ss(acc, kstep(tile_desc(ct), kk, TILE),
                             kstep(ht_desc, 8 * sp + kk, PT), sp + kk > 0);
           wgmma_commit();
-        }
-        if (SPT == 2) {
-          wgmma_wait<1>();
-          release(empty, n);
+          if (sp > 0) {
+            wgmma_wait<1>();
+            release(empty, n + sp - 1);
+          }
         }
         wgmma_wait<0>();
         fence_regs(acc);
@@ -620,7 +659,7 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
         if (jt == it) {
           build_w<true>(w, cbt, lc, dts, vdt, jt * TILE, I0, lc0, lc1, 0.f, 0.f, r0, c);
         } else {
-          const float lr = lc[jt * TILE + TILE - 1];  // a full tile: R < Q
+          const float lr = lc[jt * TILE + TILE - 1];  // a full tile: R < Qu
           build_w<false>(w, cbt, lc, dts, vdt, jt * TILE, I0, lc0, lc1, ex2(lc0 - lr),
                          ex2(lc1 - lr), r0, c);
         }
@@ -647,19 +686,19 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
           const int I = q ? I1 : I0, p = 8 * j + 2 * c;
           const float v0 = acc[4 * j + 2 * q] + d_h * lds(xt, swz(p, I, PT));
           const float v1 = acc[4 * j + 2 * q + 1] + d_h * lds(xt, swz(p + 1, I, PT));
-          *reinterpret_cast<__nv_bfloat162*>(ys + yswz<PT>((r0 + 8 * q) * PT * 2 + 2 * p)) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<uint32_t*>(ys + yswz<PT>((r0 + 8 * q) * PT * 2 + 2 * p)) =
+              pack2<T>(v0, v1);
         }
       if (y_tma) {
         fence_async_smem();
         warpgroup_sync(wg);
         if (wtid == 0) {
-          tma_store_4d(&ty, ys, p0, h, i0, b * nc + ci);
+          tma_store_4d(&ty, ys, p0, h, s0 + i0, bc);
           tma_store_commit();
         }
       } else {
         warpgroup_sync(wg);
-        const int q4 = pv / 4, rows = min(TILE, Q - i0);
+        const int q4 = pv / 4, rows = min(TILE, Qu - i0);
         for (int e = wtid; e < rows * q4; e += WG) {
           const int r = e / q4, q = e % q4;
           *reinterpret_cast<uint2*>(y + ((row0 + i0 + r) * H + h) * P + p0 + 4 * q) =
@@ -671,20 +710,20 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
     // ---- state: h * 2^lc_last + (B o scl)^T [n][j] . x^T [p][j] ---------
     if (has_state) {
       const float decay = ex2(lc_last);
-#pragma unroll
-      for (int i = 0; i < ND; ++i) hacc[i] *= decay;
       uint32_t wa[8][4];
-      auto state = [&](uint32_t (&w)[8][4], int jt) {
-        build_bd(w, consume(ring, full, n), scl, jt * TILE, nb, N, r0, c);
-        release(empty, n);
-        ++n;
-        mma_xt<PT>(hacc, w, xt_desc, jt);
-      };
-      for (int jt = 0; jt < nt; ++jt) {
-        state(wa, jt);
-        wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < MW; ++m) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) hacc[m][i] *= decay;
+        for (int jt = 0; jt < nt; ++jt) {
+          build_bd(wa, consume(ring, full, n), scl, jt * TILE, nb + TILE * m, N, r0, c);
+          release(empty, n);
+          ++n;
+          mma_xt<PT>(hacc[m], wa, xt_desc, jt);
+          wgmma_wait<0>();
+        }
+        fence_regs(hacc[m]);
       }
-      fence_regs(hacc);
     }
   }
 
@@ -692,15 +731,17 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
   // h_last (b, H, N, P) from this warpgroup's state rows
   if (has_state)
 #pragma unroll
-    for (int j = 0; j < ND / 4; ++j)
+    for (int m = 0; m < MW; ++m)
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int nr = nb + r0 + 8 * q, p = 8 * j + 2 * c;
-        if (nr < N && p < pv)
-          *reinterpret_cast<float2*>(
-              h_last + ((static_cast<long long>(b) * H + h) * N + nr) * P + p0 + p) =
-              make_float2(hacc[4 * j + 2 * q], hacc[4 * j + 2 * q + 1]);
-      }
+      for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int nr = nb + TILE * m + r0 + 8 * q, p = 8 * j + 2 * c;
+          if (nr < N && p < pv)
+            *reinterpret_cast<float2*>(
+                h_last + ((static_cast<long long>(b) * H + h) * N + nr) * P + p0 + p) =
+                make_float2(hacc[m][4 * j + 2 * q], hacc[m][4 * j + 2 * q + 1]);
+        }
 }
 
 // sets a kernel's dynamic shared-memory limit once per device, not on every
@@ -716,15 +757,17 @@ cudaError_t smem_limit_once(Kernel kern, int bytes, std::atomic<int>& set_on) {
   return err;
 }
 
-template <int PT, int NA>
+template <typename T, int PT, int NA>
 int launch(const void* x, const void* dt, const void* B, const void* C, const void* la,
            const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
            int P, int N, cudaStream_t stream) {
-  const int nt = (Q + TILE - 1) / TILE, QT = nt * TILE;
+  // units of at most QMAX steps a chunk; C.B^T of each in (QT, QT) tiles
+  const int nsub = (Q + QMAX - 1) / QMAX;
+  const int QT = min((Q + TILE - 1) / TILE * TILE, QMAX);
   const uint64_t bnc = static_cast<uint64_t>(b) * nc, q = Q, n = N, qt = QT;
   CUtensorMap tc, tb, tcb;
-  // B, C (b*nc, Q, N) and CB (b*nc, QT, QT), fp32: boxes of 64 rows x 32
-  // columns (128 bytes, 128-byte swizzle); rows past Q and columns past N
+  // B, C (b*nc, Q, N) and CB (b*nc*nsub, QT, QT), fp32: boxes of 64 rows x
+  // 32 columns (128 bytes, 128-byte swizzle); rows past Q and columns past N
   // arrive as zeros
   int err = make_tensor_map<3>(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, C, {n, q, bnc},
                                {n * 4, q * n * 4}, {32, TILE, 1});
@@ -732,61 +775,75 @@ int launch(const void* x, const void* dt, const void* B, const void* C, const vo
     err = make_tensor_map<3>(&tb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, B, {n, q, bnc},
                              {n * 4, q * n * 4}, {32, TILE, 1});
   if (!err)
-    err = make_tensor_map<3>(&tcb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cb, {qt, qt, bnc},
-                             {qt * 4, qt * qt * 4}, {32, TILE, 1});
-  // y (b*nc, Q, H, P) bf16 for the TMA store of y tiles, where its rows are
-  // 16-byte aligned
+    err = make_tensor_map<3>(&tcb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cb,
+                             {qt, qt, bnc * nsub}, {qt * 4, qt * qt * 4}, {32, TILE, 1});
+  // y (b*nc, Q, H, P) in x's type for the TMA store of y tiles, where its
+  // rows are 16-byte aligned
   CUtensorMap ty{};
   const int y_tma = P % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const uint64_t h_ = H, p_ = P;
   if (!err && y_tma)
-    err = make_tensor_map<4>(&ty, false, y, {p_, h_, q, bnc}, {p_ * 2, h_ * p_ * 2,
-                             q * h_ * p_ * 2}, {PT, 1, TILE, 1});
+    err = make_tensor_map<4>(&ty, is_f16<T>, y, {p_, h_, q, bnc},
+                             {p_ * 2, h_ * p_ * 2, q * h_ * p_ * 2}, {PT, 1, TILE, 1});
   if (err) return err;
   static std::atomic<int> cb_set_on{-1}, scan_set_on{-1};
   auto cbk = ssd_cb_kernel<NA>;
-  auto scan = ssd_scan_sm90_kernel<PT, NA>;
-  cudaError_t ce = smem_limit_once(cbk, CB_SMEM, cb_set_on);
-  if (ce == cudaSuccess) ce = smem_limit_once(scan, ScanLayout<PT>::SMEM, scan_set_on);
+  auto scan = ssd_scan_sm90_kernel<T, PT, NA>;
+  constexpr int SMEM = ScanLayout<PT, NA>::SMEM;
+  static_assert(SMEM <= 227 * 1024, "shared memory of a block");
+  cudaError_t ce = smem_limit_once(cbk, CB_SMEM<NA>, cb_set_on);
+  if (ce == cudaSuccess) ce = smem_limit_once(scan, SMEM, scan_set_on);
   if (ce != cudaSuccess) return ce;
-  cbk<<<dim3(nt * (nt + 1) / 2, b * nc), WG, CB_SMEM, stream>>>(
-      tc, tb, static_cast<float*>(cb), QT);
+  const int ntq = QT / TILE;
+  cbk<<<dim3(ntq * (ntq + 1) / 2, b * nc * nsub), WG, CB_SMEM<NA>, stream>>>(
+      tc, tb, static_cast<float*>(cb), QT, nsub);
   ce = cudaGetLastError();
   if (ce != cudaSuccess) return ce;
-  scan<<<dim3((P + PT - 1) / PT, H, b), NTHREADS, ScanLayout<PT>::SMEM, stream>>>(
-      tc, tb, tcb, ty, y_tma, static_cast<const __nv_bfloat16*>(x),
-      static_cast<const float*>(dt),
-      static_cast<const float*>(la), static_cast<const float*>(D),
-      static_cast<__nv_bfloat16*>(y), static_cast<float*>(h_last), nc, Q, H, P, N);
+  scan<<<dim3((P + PT - 1) / PT, H, b), NTHREADS, SMEM, stream>>>(
+      tc, tb, tcb, ty, y_tma, static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(la), static_cast<const float*>(D), static_cast<T*>(y),
+      static_cast<float*>(h_last), nc, Q, H, P, N);
   return cudaGetLastError();
 }
 
-template <int PT>
-int dispatch(const void* x, const void* dt, const void* B, const void* C, const void* la,
+template <typename T, int PT>
+int by_state(const void* x, const void* dt, const void* B, const void* C, const void* la,
              const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
              int P, int N, cudaStream_t st) {
   // 32-column atoms of a B or C tile: 1, 2 or 4 (N in (64, 96] loads an
   // atom of zeros)
-  return N <= 32   ? launch<PT, 1>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-         : N <= 64 ? launch<PT, 2>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-                   : launch<PT, 4>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+  return N <= 32   ? launch<T, PT, 1>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+         : N <= 64 ? launch<T, PT, 2>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+                   : launch<T, PT, 4>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+}
+
+template <typename T>
+int dispatch(const void* x, const void* dt, const void* B, const void* C, const void* la,
+             const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
+             int P, int N, cudaStream_t st) {
+  // N > 128: 8 atoms, and P-tiles of 32 so that shared memory fits
+  if (N > 128) return launch<T, 32, 8>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+  return P <= 32 ? by_state<T, 32>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+                 : by_state<T, 64>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
 }
 
 }  // namespace
 
-// x (b,nc,Q,H,P) and y (b,nc*Q,H,P) bf16; dt, la (b,nc,Q,H), B, C
-// (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32; cb an fp32 scratch buffer of
-// b*nc*QT*QT elements, QT = Q rounded up to 64. All contiguous; B, C and cb
-// 16-byte aligned (TMA), x 8-byte aligned (cp.async). 1 <= Q <= 256; N a
-// multiple of 4 up to 128; P a multiple of 4 up to 64, or a multiple of 64.
+// x (b,nc,Q,H,P) and y (b,nc*Q,H,P) in bf16 (is_f16 = 0) or fp16 (is_f16 =
+// 1); dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32;
+// cb an fp32 scratch buffer of b*nc*nsub*QT*QT elements, nsub = ceil(Q /
+// 256) and QT = min(Q rounded up to 64, 256). All contiguous; B, C and cb
+// 16-byte aligned (TMA), x 8-byte aligned (cp.async). Q >= 1; N a multiple
+// of 4 up to 256; P a multiple of 4.
 extern "C" int ssd_fwd_sm90(const void* x, const void* dt, const void* B, const void* C,
                             const void* la, const void* D, void* y, void* h_last, void* cb,
-                            int b, int nc, int Q, int H, int P, int N, void* stream) {
-  const bool ok = b > 0 && nc > 0 && Q >= 1 && Q <= QMAX && H > 0 && N >= 4 &&
-                  N <= NMAX && N % 4 == 0 && P >= 4 && P % 4 == 0 &&
-                  (P <= 64 || P % 64 == 0);
+                            int b, int nc, int Q, int H, int P, int N, int is_f16,
+                            void* stream) {
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N <= NMAX && N % 4 == 0 &&
+                  P >= 4 && P % 4 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return P <= 32 ? dispatch<32>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-                 : dispatch<64>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+  return is_f16
+             ? dispatch<__half>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
+             : dispatch<__nv_bfloat16>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
 }

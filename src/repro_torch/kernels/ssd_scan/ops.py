@@ -3,7 +3,7 @@
 Replaces the TPU kernel ``repro/kernels/ssd_scan/kernel.py``
 (``_ssd_kernel``, wrapped by ``ops.ssd_scan``) with two CUDA C++ kernels,
 chosen by x's dtype and by nothing else:
-  - bf16: ``csrc/ssd_fwd_sm90.cu``, every product a TF32 ``wgmma`` on the
+  - bf16 and fp16: ``csrc/ssd_fwd_sm90.cu``, every product a TF32 ``wgmma`` on the
     tensor cores, B/C/CB tiles loaded by TMA through an mbarrier ring, and
     ``C.B^T`` computed once per (batch, chunk) by a first kernel into a
     scratch buffer the wrapper allocates;
@@ -12,6 +12,13 @@ chosen by x's dtype and by nothing else:
 At the mamba2-2.7b serving shape (b=4, nc=4, Q=256, H=80, P=64, N=128, x
 bf16) the scan is bound by bytes (~101 MB against ~16.3 GFLOP). See the
 notes at the heads of the sources.
+
+Both kernels take any chunk length Q (past 256 steps a chunk is walked as
+sub-chunks of 256, the state carried across them), any state N up to 256
+and any head dim P. The wrapper zero-pads B and C to a multiple of 4
+columns (TMA and the float4 loads need 16-byte rows; zero state columns
+are exact) and, for the 16-bit route, x to a multiple of 4 columns (its
+8-byte copies); h_last and y are sliced back. N over 256 raises.
 
 A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
@@ -32,32 +39,41 @@ from ..build import load
 from .ref import ssd_scan_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-#: x's dtype -> (source, C entry point, whether it takes a CB scratch buffer)
+#: x's dtype -> (source, C entry point, trailing int arguments before the
+#: stream; a route with any also takes a CB scratch buffer)
 ROUTES = {
-    torch.bfloat16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", True),
-    torch.float32: (_CSRC / "ssd_fwd.cu", "ssd_fwd", False),
+    torch.bfloat16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (0,)),
+    torch.float16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (1,)),
+    torch.float32: (_CSRC / "ssd_fwd.cu", "ssd_fwd", ()),
 }
 #: every source the wrapper may launch, each built once
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
 X_DTYPES = tuple(ROUTES)
-MAX_CHUNK, MAX_STATE, P_TILE, TILE = 256, 128, 64, 64
+#: steps of a sub-chunk, the widest state, the CB tiles' rows
+SUB_CHUNK, MAX_STATE, TILE = 256, 256, 64
 
 
 def route(dtype):
-    """(source, entry point, takes a CB scratch buffer) of the kernel for x
-    of ``dtype``; ValueError for a dtype that neither kernel takes."""
+    """(source, entry point, extra int arguments) of the kernel for x of
+    ``dtype``; ValueError for a dtype that neither kernel takes."""
     if dtype not in ROUTES:
         raise ValueError(f"ssd_scan: x dtype {dtype} not in {X_DTYPES}")
     return ROUTES[dtype]
 
 
-def _entry(source, name, scratch):
+def _entry(source, name, extra):
     fn = getattr(load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (9 if scratch else 8) + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * (9 if extra else 8)
+                       + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _pad_last(t, mult):
+    """``t`` with zero columns appended up to a multiple of ``mult``."""
+    pad = -t.shape[-1] % mult
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _check(x, dt, B, C, la, D):
@@ -96,35 +112,42 @@ def _forward(x, dt, B, C, la, D):
     N = B.shape[-1]
     if not all(t.is_contiguous() for t in (x, dt, B, C, la, D)):
         raise ValueError("ssd_scan: inputs must be contiguous")
-    if x.numel() == 0:
+    if x.numel() == 0 or N == 0:
         raise ValueError("ssd_scan: empty input")
-    if not 1 <= Q <= MAX_CHUNK:
-        raise ValueError(f"ssd_scan: chunk {Q} not in [1, {MAX_CHUNK}]")
-    if N % 4 or not 4 <= N <= MAX_STATE:
-        raise ValueError(f"ssd_scan: state {N} not a multiple of 4 in [4, {MAX_STATE}]")
-    if P % 4 or (P > P_TILE and P % P_TILE):
-        raise ValueError(f"ssd_scan: head dim {P} not a multiple of 4 up to "
-                         f"{P_TILE}, or of {P_TILE}")
-    source, name, scratch = route(x.dtype)
+    if N > MAX_STATE:
+        raise ValueError(f"ssd_scan: state {N} over {MAX_STATE} (ROADMAP.md, Queue 2, K2: "
+                         f"states over 256)")
+    source, name, extra = route(x.dtype)
+    # zero columns: a state column of zeros stays 0 and adds 0 to C.h; an x
+    # column of zeros gives y and h columns of zeros; both are sliced off
+    B, C = _pad_last(B, 4), _pad_last(C, 4)
+    if extra:
+        x = _pad_last(x, 4)
+    Np, Pp = B.shape[-1], x.shape[-1]
     if B.data_ptr() % 16 or C.data_ptr() % 16:
         raise ValueError("ssd_scan: B and C must be 16-byte aligned")
-    if scratch and x.data_ptr() % 8:
+    if extra and x.data_ptr() % 8:
         raise ValueError("ssd_scan: x must be 8-byte aligned")
-    fn = _entry(source, name, scratch)
-    y = torch.empty((b, nc * Q, H, P), dtype=x.dtype, device=x.device)
-    h_last = torch.empty((b, H, N, P), dtype=torch.float32, device=x.device)
-    # C.B^T of every (batch, chunk), 64 x 64 tiles (the bf16 route only)
-    qt = -(-Q // TILE) * TILE
-    cb = ([torch.empty((b * nc, qt, qt), dtype=torch.float32, device=x.device)]
-          if scratch else [])
+    fn = _entry(source, name, extra)
+    y = torch.empty((b, nc * Q, H, Pp), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((b, H, Np, Pp), dtype=torch.float32, device=x.device)
+    # C.B^T of every (batch, chunk, sub-chunk of 256 steps), 64 x 64 tiles
+    # (the 16-bit route only)
+    nsub, qt = -(-Q // SUB_CHUNK), min(-(-Q // TILE) * TILE, SUB_CHUNK)
+    cb = ([torch.empty((b * nc * nsub, qt, qt), dtype=torch.float32, device=x.device)]
+          if extra else [])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), la.data_ptr(),
                  D.data_ptr(), y.data_ptr(), h_last.data_ptr(), *(t.data_ptr() for t in cb),
-                 b, nc, Q, H, P, N, stream)
+                 b, nc, Q, H, Pp, Np, *extra, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
     ssd_scan.launches += 1
+    if Pp != P:
+        y = y[..., :P].contiguous()
+    if (Np, Pp) != (N, P):
+        h_last = h_last[:, :, :N, :P].contiguous()
     return y, h_last
 
 
@@ -153,7 +176,7 @@ class SSDScan(torch.autograd.Function):
 
 
 def ssd_scan(x, dt, B, C, la, D):
-    """x (b,nc,Q,H,P) f32 or bf16; dt, la (b,nc,Q,H), B, C (b,nc,Q,N) and
+    """x (b,nc,Q,H,P) f32, bf16 or fp16; dt, la (b,nc,Q,H), B, C (b,nc,Q,N) and
     D (H,) f32. Returns y (b, nc*Q, H, P) in x's dtype and h_last
     (b, H, N, P) in fp32, differentiable in all six inputs."""
     _check(x, dt, B, C, la, D)
@@ -161,6 +184,6 @@ def ssd_scan(x, dt, B, C, la, D):
 
 
 #: calls that reached a kernel since the count was last set to 0: one a call,
-#: though the bf16 route launches two kernels (the CB pass, then the scan);
+#: though the 16-bit route launches two kernels (the CB pass, then the scan);
 #: CPU calls are not counted
 ssd_scan.launches = 0

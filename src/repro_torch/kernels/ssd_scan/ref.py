@@ -54,14 +54,16 @@ def tf32(t):
 
 
 def ssd_scan_tf32_ref(x, dt, B, C, la, D):
-    """The same function as ``ssd_scan_ref``, rounded where the bf16 CUDA
-    route (``csrc/ssd_fwd_sm90.cu``) rounds: each product's operands are
-    read as tf32 (``tf32``), every sum and every other step is fp32, and
-    ``D.x`` is added in fp32 before the one cast to x's dtype. The four
-    products: ``CB = C.B^T``; ``W.x`` with ``W = CB o L o dt_j``; ``C.h``;
-    and the state update ``(B o dt o decay_to_end)^T.x``. The main path never
-    calls it: the tests hold the kernel against it, and it against the
-    reference."""
+    """The same function as ``ssd_scan_ref``, rounded where the 16-bit CUDA
+    route (``csrc/ssd_fwd_sm90.cu``, x in bf16 or fp16, both exact in tf32)
+    rounds: each product's operands are read as tf32 (``tf32``), every sum
+    and every other step is fp32, and ``D.x`` is added in fp32 before the
+    one cast to x's dtype. The four products: ``CB = C.B^T``; ``W.x`` with
+    ``W = CB o L o dt_j``; ``C.h``; and the state update
+    ``(B o dt o decay_to_end)^T.x``. A chunk past 256 steps, which the
+    kernel walks as sub-chunks of 256, is modelled whole (the same
+    recurrence, its sums in another order). The main path never calls it:
+    the tests hold the kernel against it, and it against the reference."""
     b, nc, Q, H, P = x.shape
     N = B.shape[-1]
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))

@@ -65,10 +65,12 @@ def test_each_accepted_dtype_names_a_source_and_its_entry_point(dtype, source):
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
     assert sig, f"{src.name} has no C entry point {name}"
     args = [a.strip() for a in sig.group(1).split(",")]
-    # q, k, v, o; B, S, H, KV, hd, causal, window; the route's extras; stream
-    assert len(args) == 4 + 7 + len(extra) + 1
+    # q, k, v, o; B, S, H, KV, hd, causal, window; the route's extras; the
+    # scale (of the unpadded head dim); stream
+    assert len(args) == 4 + 7 + len(extra) + 2
     assert all("void*" in a for a in args[:4] + args[-1:])
-    assert all(a.startswith("int ") for a in args[4:-1])
+    assert all(a.startswith("int ") for a in args[4:-2])
+    assert args[-2].startswith("float ")
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.int32, torch.uint8,
@@ -83,21 +85,23 @@ def test_sources_are_built_once_each():
 
 
 @pytest.mark.parametrize("dtype,source,n_ptr", [(torch.bfloat16, "ssd_fwd_sm90.cu", 9),
-                                                (torch.float32, "ssd_fwd.cu", 8)])
+                                                (torch.float32, "ssd_fwd.cu", 8),
+                                                (torch.float16, "ssd_fwd_sm90.cu", 9)])
 def test_each_ssd_dtype_names_a_source_and_its_entry_point(dtype, source, n_ptr):
-    src, name, scratch = ssd_ops.route(dtype)
+    src, name, extra = ssd_ops.route(dtype)
     assert src.name == source and src.exists() and src in ssd_ops.SOURCES
-    assert scratch == (n_ptr == 9)
+    assert bool(extra) == (n_ptr == 9)     # the 16-bit route: a CB scratch, x's type
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
     assert sig, f"{src.name} has no C entry point {name}"
     args = [a.strip() for a in sig.group(1).split(",")]
-    # x, dt, B, C, la, D, y, h_last (+ the CB scratch); b, nc, Q, H, P, N; stream
-    assert len(args) == n_ptr + 6 + 1
+    # x, dt, B, C, la, D, y, h_last (+ the CB scratch); b, nc, Q, H, P, N;
+    # the route's extras; stream
+    assert len(args) == n_ptr + 6 + len(extra) + 1
     assert all("void*" in a for a in args[:n_ptr] + args[-1:])
     assert all(a.startswith("int ") for a in args[n_ptr:-1])
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32,
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float64, torch.int32,
                                    torch.complex64])
 def test_other_ssd_dtypes_raise(dtype):
     with pytest.raises(ValueError):

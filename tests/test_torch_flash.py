@@ -55,6 +55,22 @@ HD80_RAGGED_CASES = [
     (1, 100, 4, 2, 80, True, 16, 64, 64),
     (1, 129, 8, 1, 80, True, 0, 64, 64),
 ]
+# every other head dim up to 256, which the JAX kernel takes as it takes any:
+# 96 and 256 are built natively, the rest zero-padded by the wrapper to the
+# next width of ops.WIDTHS (8, 16, 20 -> 32; 48 -> 64; 112 -> 128; 160,
+# 192 -> 256); causal, bidirectional and windowed. S is a multiple of the
+# JAX block (interpret mode gives NaN on ragged tails)
+ANY_HD_CASES = [
+    (1, 128, 4, 2, 8, True, 0, 64, 64),
+    (1, 128, 4, 4, 16, False, 0, 64, 64),
+    (2, 128, 4, 2, 20, True, 32, 64, 64),
+    (1, 128, 4, 2, 48, False, 0, 64, 64),
+    (1, 256, 4, 2, 96, True, 0, 128, 128),
+    (1, 128, 4, 4, 112, True, 48, 64, 64),
+    (1, 128, 2, 1, 160, False, 0, 64, 64),
+    (1, 128, 4, 2, 192, True, 0, 64, 64),
+    (1, 256, 4, 2, 256, True, 100, 128, 128),
+]
 # f32: summation orders differ. bf16: P and the output are rounded to the
 # input type. fp16 has 3 more mantissa bits than bf16, so bf16's tolerance
 # covers it against the JAX package on the CPU.
@@ -92,7 +108,7 @@ def f32(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + HD80_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + HD80_CASES + ANY_HD_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_matches_jax(case, dtype, tol, jx):
     B, S, H, KV, hd, causal, win, bq, bk = case
@@ -114,6 +130,34 @@ def test_flash_ragged_matches_jax_ref(case, dtype, tol, jx):
     out = flash_attention(*as_torch(arrs, dtype), causal, win, bq, bk)
     ref = jx.ref(*jx.inputs(arrs, dtype), causal=causal, window=win)
     np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ANY_HD_CASES)
+def test_padding_equals_the_unpadded_plain_version(case):
+    """The wrapper's padding (q, k, v zero-padded to the kernel width, the
+    true width's scale, the output sliced back) around the plain version
+    equals the plain version on the unpadded inputs, to fp32 rounding: zero
+    columns add exactly 0 to q.k and give zero output columns."""
+    B, S, H, KV, hd, causal, win = case[:7]
+    q, k, v = as_torch(inputs(case, "float32", seed=3), "float32")
+    seen = []
+
+    def plain(q, k, v, causal, window, scale):
+        seen.append(q.shape[-1])
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    out = ops.run_padded(q, k, v, causal, win, plain)
+    assert seen == [ops.padded_width(hd)] and ops.padded_width(hd) in ops.WIDTHS
+    assert out.shape == (B, S, H, hd) and out.is_contiguous()
+    want = attention_ref(q, k, v, causal=causal, window=win)
+    np.testing.assert_allclose(f32(out), f32(want), atol=1e-6, rtol=1e-6)
+
+
+def test_every_head_dim_up_to_256_has_a_width_and_over_256_is_refused():
+    widths = [ops.padded_width(hd) for hd in range(1, 257)]
+    assert all(hd <= w and w in ops.WIDTHS for hd, w in zip(range(1, 257), widths))
+    assert {64, 80, 96, 128, 256} <= set(ops.WIDTHS)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        ops.padded_width(257)
 
 
 def test_cpu_calls_are_not_counted_as_launches():
@@ -139,7 +183,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_CASES + RAGGED_CASES + BOUNDARY_CASES + HD80_CASES
-                         + HD80_RAGGED_CASES)
+                         + HD80_RAGGED_CASES + ANY_HD_CASES)
 @pytest.mark.parametrize("dtype,tol", CUDA_DTYPES)
 def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     if not torch.cuda.is_available():

@@ -137,6 +137,39 @@ def test_prefill_and_decode_match_jax(use_kernel):
     assert ts.pos == int(js.pos) == S + steps
 
 
+# fp16 end to end: both sides round every activation to fp16 (2^-11), in
+# different orders. On the CPU the loss differed by 4.4e-5 of itself and the
+# prefill logits by 1.0e-3 of the largest (1.5 fp16 steps there)
+FP16_LOSS_RTOL, FP16_LOGITS_RTOL = 5e-4, 5e-3
+
+
+def test_fp16_loss_and_prefill_through_the_kernel_match_jax():
+    """The smoke config in fp16 with ``use_ssd_kernel``: the port's loss and
+    prefill logits against the JAX package's, whose Pallas kernel returns y
+    in x's dtype. The port's wrapper refused fp16 x on every device before
+    (ROADMAP Queue 3 E)."""
+    jcfg = jax_smoke_config(ARCH).replace(dtype=jnp.float16, use_ssd_kernel=True)
+    tcfg = get_smoke_config(ARCH).replace(dtype=torch.float16, use_ssd_kernel=True)
+    jp = jax_params(jcfg)
+    tp = from_jax(tcfg, jp, device="cpu")
+    assert tp.layers[0].in_x.dtype == torch.float16
+    rng = np.random.default_rng(4)
+    tokens, targets = (rng.integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
+                       for _ in range(2))
+    jl = float(JaxModel(jcfg).loss(jp, {"tokens": jnp.asarray(tokens),
+                                        "targets": jnp.asarray(targets)}))
+    with torch.no_grad():
+        tl = Model(tcfg).loss(tp, {"tokens": torch.from_numpy(tokens).long(),
+                                   "targets": torch.from_numpy(targets).long()}).item()
+        tlog, _ = Model(tcfg).prefill(tp, {"tokens": torch.from_numpy(tokens)}, 16)
+    jlog, _ = JaxModel(jcfg).prefill(jp, {"tokens": jnp.asarray(tokens)}, 16)
+    assert np.isfinite(tl) and abs(tl - jl) <= FP16_LOSS_RTOL * abs(jl), (tl, jl)
+    jlog = np.asarray(jlog, np.float32)
+    tlog = tlog.float().numpy()
+    assert tlog.shape == jlog.shape and np.isfinite(tlog).all()
+    np.testing.assert_allclose(tlog, jlog, atol=FP16_LOGITS_RTOL * np.abs(jlog).max(), rtol=0)
+
+
 def test_prefill_needs_a_whole_number_of_chunks():
     _, tcfg = configs()
     m = Model(tcfg)
