@@ -104,7 +104,24 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      4 x 1024 prefills kernel on against off; each 16-bit prefill also
      against the plain path in fp32 on the same weights, which sets the
      scale of the 16-bit rounding the comparison allows;
- 13. one JSON line of train numbers, one of kernel numbers, then the result
+ 13. past 256, and the zoo's last configs that fit one card (what the
+     earlier phases held freed first): K1 at head dims 264, 320, 384, 512
+     and 1024 (padded to a multiple of 64, output columns in passes of 256),
+     B 4, S 2048, 32 query / 8 KV heads, causal and bidirectional, and K2 at
+     (4, 2, 256, 40, 64) with N 320 and 512 (the state in slices of 256),
+     each in every dtype route, held against its plain version and timed as
+     in phase 3; each kernel timed at the shapes of the paths below. Then,
+     each path with the launch counts set to 0 just before and read just
+     after: ``serve`` of full-width, full-depth granite-20b in bf16 (8
+     requests of 1024 + 64 tokens in waves of 4; MQA, 48 query heads on one
+     KV head); granite-20b cut 52 -> 4 layers for a fp32 4 x 1024 prefill
+     kernel on against off and 2 bf16 ``train`` steps of 4 x 1024 tokens
+     (every parameter's gradient present and finite); smollm-360m at full
+     size: ``train`` 2 steps, ``serve`` and the fp32 prefill check;
+     tinyllama-1.1b with ``head_dim=512`` and mamba2-2.7b with
+     ``ssm_state=512``, bf16 4 x 1024 prefills kernel on against off and
+     against the plain path in fp32, as in phase 12;
+ 14. one JSON line of train numbers, one of kernel numbers, then the result
      line.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout.
@@ -112,6 +129,7 @@ Exits non-zero, printing no result, without CUDA or outside a checkout.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -251,6 +269,21 @@ FLASH_HD256_CASE = (4, 1024, 32, 4, 256, True, 0)
 # decode lengths at batch 2 (2 waves), prefills of 4 x 1024 tokens
 SHAPE_SERVE = dict(n_requests=4, batch=2)
 SHAPE_PREFILL = (4, 1024)
+# phase 13: K1 past head dim 256 at SHAPE_FLASH (widths padded to a multiple
+# of 64, output columns in passes of 256), K2 past state 256 at
+# WIDE_SSD_CASE's (b, nc, Q, H, P) (the state in slices of 256), every dtype
+WIDE_HEAD_DIMS = (264, 320, 384, 512, 1024)
+WIDE_SSD_CASE = (4, 2, 256, 40, 64)
+WIDE_STATES = (320, 512)
+# the kernels at the shapes phase 13's paths give them: granite-20b (MQA,
+# 48 query heads on 1 KV head), smollm-360m (15 on 5), tinyllama-1.1b at
+# head dim 512; mamba2-2.7b at state 512
+WIDE_PATH_FLASH = {"granite-20b": (4, 1024, 48, 1, 128, True, 0),
+                   "smollm-360m": (4, 1024, 15, 5, 64, True, 0),
+                   "tinyllama-1.1b head_dim 512": (4, 1024, 32, 4, 512, True, 0)}
+WIDE_PATH_SSD = (4, 4, 256, 80, 64, 512)
+# granite-20b's depth for the fp32 prefill check and the train steps
+WIDE_CUT_LAYERS = 4
 # a 16-bit prefill through the kernel against the plain 16-bit path: within
 # twice the plain path's own distance from the plain path in fp32 (what 16
 # bits cost through the model; the two paths round differently, and if
@@ -316,10 +349,11 @@ def host_ms(torch, fn, reps=50, warmup=3):
     return dt / reps * 1e3
 
 
-def timings(torch, fn):
-    """``fn``'s ms (CUDA events around one call), device ms and host ms."""
-    return {"ms": cuda_ms(torch, fn), "device_ms": device_ms(torch, fn),
-            "host_ms": host_ms(torch, fn)}
+def timings(torch, fn, reps=20):
+    """``fn``'s ms (CUDA events around one call), device ms and host ms,
+    medians of ``reps`` calls (host ms: of 2.5x as many)."""
+    return {"ms": cuda_ms(torch, fn, reps), "device_ms": device_ms(torch, fn, reps),
+            "host_ms": host_ms(torch, fn, reps * 5 // 2)}
 
 
 def flash_bound(torch, case, dtype):
@@ -373,9 +407,10 @@ def build_all(sources):
     return time.monotonic() - t0
 
 
-def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False):
+def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False, reps=20):
     """The kernel of ``dtype``'s route against the plain version; with
-    ``timed``, also its numbers for the kernels line."""
+    ``timed``, also its numbers for the kernels line (medians of ``reps``
+    calls)."""
     B, S, H, KV, hd, causal, window = case
     F = torch.nn.functional
     dt = getattr(torch, dtype)
@@ -407,20 +442,20 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False):
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                      enable_gqa=True)
     bound_ms, bound_by = flash_bound(torch, case, dtype)
-    kern = timings(torch, lambda: ops.flash_attention(q, k, v, causal, window))
-    sdpa = timings(torch, lib)
+    kern = timings(torch, lambda: ops.flash_attention(q, k, v, causal, window), reps)
+    sdpa = timings(torch, lib, reps)
     row = {"max_abs_err": err, "ms": kern["ms"],
            "plain_ms": cuda_ms(torch, lambda: attention_ref(q, k, v, causal=causal,
-                                                            window=window)),
+                                                            window=window), reps),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": sdpa["ms"],
            "device_ms": kern["device_ms"], "host_ms": kern["host_ms"]}
-    width = ops.padded_width(hd)
+    width = ops.launch_plan(hd)[0]
     if width != hd:
         # the kernel alone at the padded width, on inputs padded beforehand:
         # the rest of the wrapper's time is the padding copies and the slice
         qp, kp, vp = (F.pad(t, (0, width - hd)) for t in (q, k, v))
         at_width = cuda_ms(torch, lambda: ops._launch(qp, kp, vp, causal, window,
-                                                      1 / math.sqrt(hd)))
+                                                      1 / math.sqrt(hd)), reps)
         row.update(padded_to=width, kernel_at_width_ms=at_width,
                    padding_copy_share=1 - at_width / kern["ms"],
                    zero_column_share=1 - hd / width)
@@ -574,14 +609,14 @@ def topk_mismatch(a, b):
             sum(x.shape[0] for x in a))
 
 
-def check_prefill(torch, np, Model, cfg32, kernels, flags, want):
-    """Full-width fp32 prefill (``Model.encode`` for an encoder) at B=1,
-    S=1024 (text) on one set of seeded weights and inputs, with every flag
+def check_prefill(torch, np, Model, cfg32, kernels, flags, want, B=1):
+    """Full-width fp32 prefill (``Model.encode`` for an encoder) at B (1 unless
+    named), S=1024 (text) on one set of seeded weights and inputs, with every flag
     of ``flags`` on (through the kernels) and off (the plain paths);
     ``want``: each kernel's launches with them on. For MoE the tokens whose
     top-k experts differ between the two runs are counted."""
     params = Model(cfg32).init(0, device="cuda")
-    batch = make_batch(torch, np, cfg32, 1, 1024)
+    batch = make_batch(torch, np, cfg32, B, 1024)
     total = 1024 + (cfg32.vision_seq if cfg32.input_mode == "vlm" else 0)
 
     def run(on):
@@ -600,7 +635,7 @@ def check_prefill(torch, np, Model, cfg32, kernels, flags, want):
     scale = lp.abs().max().item()
     moved, of = topk_mismatch(rk, rp)
     what = "encode" if cfg32.input_mode == "embeds" else "prefill"
-    print(f"[prefill] {cfg32.name} fp32 {cfg32.n_layers} layers B=1 S={total} {what}: "
+    print(f"[prefill] {cfg32.name} fp32 {cfg32.n_layers} layers B={B} S={total} {what}: "
           f"{'+'.join(flags)} on vs off max|diff| {diff:.3g}, max|logit| {scale:.3g}, "
           f"relative {diff / scale:.3g} (limit {PREFILL_RTOL}), kernel launches {n_kernel}"
           + (f", top-k differs for {moved} of {of} token-layers" if of else ""))
@@ -1502,6 +1537,119 @@ def shapes_phase(torch, np, Model, serve_mod, get_config, ops, attention_ref, ss
     return flash_rows, ssd_rows, nums, launches
 
 
+@contextlib.contextmanager
+def grads_checked(torch, train_mod, seen):
+    """While open, every AdamW update of ``train`` first checks that each
+    parameter has a gradient (raises otherwise) and appends whether all of
+    them are finite (a device bool) to ``seen``."""
+    update = train_mod.adamw_update
+
+    def checked(grads, named, state, opt):
+        missing = [k for k, g in grads.items() if g is None]
+        if missing:
+            raise AssertionError(f"no gradient for {missing}")
+        seen.append(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        return update(grads, named, state, opt)
+    train_mod.adamw_update = checked
+    try:
+        yield
+    finally:
+        train_mod.adamw_update = update
+
+
+def wide_phase(torch, np, Model, serve_mod, train_mod, get_config, ops, attention_ref,
+               ssd_ops, ssd_scan_ref, ssd_scan_tf32_ref, kernels):
+    """Phase 13: K1 past head dim 256 and K2 past state 256 alone, then the
+    zoo's last single-card configs and the new shapes on main paths. Returns
+    (K1 rows, K2 rows, path numbers, each kernel's launches on each path)."""
+    K1, K2 = "flash_attention_fwd", "ssd_scan_fwd"
+    flash_rows, ssd_rows, nums, launches = [], [], {}, {}
+    for hd in WIDE_HEAD_DIMS:
+        for causal in (True, False):
+            for dtype in FLASH_DTYPES:
+                case = (*SHAPE_FLASH, hd, causal, 0)
+                # the fp32 route takes 10-300 ms a call here: fewer repeats
+                row = check_flash(torch, ops, attention_ref, case, dtype, timed=True,
+                                  reps=5 if dtype == "float32" else 20)
+                flash_rows.append({"case": case, "dtype": dtype,
+                                   "column_passes": ops.launch_plan(hd)[1], **row})
+    for n in WIDE_STATES:
+        for dtype in FLASH_DTYPES:
+            case = (*WIDE_SSD_CASE, n)
+            ssd_rows.append({"case": case, "dtype": dtype, "slices": -(-n // ssd_ops.N_SLICE),
+                             **check_ssd(torch, ssd_ops, ssd_scan_ref, case, dtype,
+                                         model=None if dtype == "float32"
+                                         else ssd_scan_tf32_ref)})
+    # the kernels at the shapes the paths below give them, bf16
+    for name, case in WIDE_PATH_FLASH.items():
+        flash_rows.append({"case": case, "dtype": "bfloat16", "path": name,
+                           **check_flash(torch, ops, attention_ref, case, "bfloat16",
+                                         timed=True)})
+    ssd_rows.append({"case": WIDE_PATH_SSD, "dtype": "bfloat16",
+                     "path": "mamba2-2.7b ssm_state 512",
+                     **check_ssd(torch, ssd_ops, ssd_scan_ref, WIDE_PATH_SSD, "bfloat16",
+                                 model=ssd_scan_tf32_ref)})
+
+    # granite-20b: served whole, bf16, full width and depth (56.3 GB of
+    # weights); then cut 52 -> 4 layers for the fp32 prefill check and 2
+    # train steps (fp32 at full depth would need 113 GB)
+    waves = -(-SERVE["n_requests"] // SERVE["batch"])
+    granite = get_config("granite-20b").replace(use_flash=True)
+    got, peak, out = serve_path(torch, serve_mod, Model, granite, kernels)
+    want = {K1: waves * granite.n_layers, K2: 0}
+    if got != want:
+        raise AssertionError(f"granite-20b serve launched {got}, expected {want}")
+    keys = ("requests", "new_tokens", "tokens_per_s", "wall_s", "p50_s", "p99_s")
+    name = "granite-20b serve"
+    nums[name] = {**{k: out[k] for k in keys}, "peak_gib": peak / 2**30, "launches": got}
+    launches[name] = got
+    del out
+    cut = WIDE_CUT_LAYERS
+    g32 = granite.replace(dtype=torch.float32, n_layers=cut)
+    name = f"granite-20b fp32 prefill, {cut} of {granite.n_layers} layers"
+    nums[name] = check_prefill(torch, np, Model, g32, kernels, ("use_flash",), {K1: cut, K2: 0},
+                               B=TRAIN["batch"])
+    launches[name] = nums[name]["launches"]
+    for cfg, name in ((granite.replace(n_layers=cut),
+                       f"granite-20b train, {cut} of {granite.n_layers} layers"),
+                      (get_config("smollm-360m").replace(use_flash=True), "smollm-360m train")):
+        seen = []
+        with grads_checked(torch, train_mod, seen):
+            got, nums[name] = train_steps(torch, train_mod, cfg, kernels, name.replace(" ", "_"),
+                                          {K1: (2 if cfg.remat else 1) * cfg.n_layers, K2: 0})
+        if len(seen) != 2 or not torch.stack(seen).all():
+            raise AssertionError(f"{name}: {len(seen)} updates, a gradient not finite")
+        print(f"[wide] {name}: every parameter had a finite gradient in both steps")
+        launches[name] = got
+
+    # smollm-360m at full size: serve, the fp32 prefill kernel on against off
+    smollm = get_config("smollm-360m").replace(use_flash=True)
+    got, peak, out = serve_path(torch, serve_mod, Model, smollm, kernels)
+    want = {K1: waves * smollm.n_layers, K2: 0}
+    if got != want:
+        raise AssertionError(f"smollm-360m serve launched {got}, expected {want}")
+    name = "smollm-360m serve"
+    nums[name] = {**{k: out[k] for k in keys}, "peak_gib": peak / 2**30, "launches": got}
+    launches[name] = got
+    del out
+    name = "smollm-360m fp32 prefill"
+    nums[name] = check_prefill(torch, np, Model, smollm.replace(dtype=torch.float32), kernels,
+                               ("use_flash",), {K1: smollm.n_layers, K2: 0})
+    launches[name] = nums[name]["launches"]
+
+    # the new shapes on main paths: 16-bit prefills against the plain path
+    tiny, mamba = get_config("tinyllama-1.1b"), get_config("mamba2-2.7b")
+    paths = {"tinyllama-1.1b head_dim 512 bf16 prefill":
+             (tiny.replace(head_dim=512), "use_flash", {K1: tiny.n_layers, K2: 0}),
+             "mamba2-2.7b ssm_state 512 bf16 prefill":
+             (mamba.replace(ssm_state=512), "use_ssd_kernel", {K1: 0, K2: mamba.n_layers})}
+    for name, (cfg, flag, want) in paths.items():
+        nums[name] = prefill_16(torch, np, Model, cfg, kernels, flag, want,
+                                SHAPE_PREFILL_LIMIT)
+        launches[name] = nums[name]["launches"]
+    return flash_rows, ssd_rows, nums, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1686,10 +1834,22 @@ def main() -> int:
         torch, np, Model, serve_mod, get_config, ops, attention_ref, ssd_ops, ssd_scan_ref,
         ssd_scan_tf32_ref, kernels)
 
-    # 13. train numbers, kernel numbers, then the result line
+    # 13. past head dim and state 256 alone; granite-20b, smollm-360m and the
+    # new shapes on main paths. What the earlier phases held is freed first:
+    # granite-20b's weights take 56.3 GB of the card's 80
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[wide] before phase 13: {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved")
+    wide_rows = {}
+    wide_rows[K1], wide_rows[K2], wide_nums, wide_launches = wide_phase(
+        torch, np, Model, serve_mod, train_mod, get_config, ops, attention_ref, ssd_ops,
+        ssd_scan_ref, ssd_scan_tf32_ref, kernels)
+
+    # 14. train numbers, kernel numbers, then the result line
     print(json.dumps({"train": train_nums, "families": family_nums,
                       "distributed": dist_nums, "dryrun": dryrun_nums,
-                      "shapes": shape_nums}))
+                      "shapes": shape_nums, "wide": wide_nums}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
@@ -1698,6 +1858,8 @@ def main() -> int:
          "sharded_launches": sharded_launches[k["name"]],
          "shapes": shape_rows[k["name"]],
          "shape_path_launches": {path: n[k["name"]] for path, n in shape_launches.items()},
+         "wide": wide_rows[k["name"]],
+         "wide_path_launches": {path: n[k["name"]] for path, n in wide_launches.items()},
          "sharded_path": "one tp_fsdp train step of 4 x 1024 tokens on a (1, 1) mesh "
                          "over NCCL, each arch",
          "zamba2": {"serve_launches": serve_launches["zamba2-1.2b"][k["name"]],

@@ -14,6 +14,12 @@ qwen2-moe-a2.7b (2 layers), hubert-xlarge (2) and llava-next-mistral-7b
 hubert and qwen2-moe, and 2 train steps of qwen2-moe (1 layer) and
 hubert-xlarge (4 layers). Each check that fails is reported and the others
 still run; the exit code is 1 if any failed.
+
+  python3 scripts/quick_check_torch.py --shapes
+
+Builds the four sources, then holds K1 past head dim 256 and K2 past state
+256 against their plain versions at phase 13's shapes in every dtype route
+(untimed), and K2 at the earlier shapes whose launch these change.
 """
 from __future__ import annotations
 
@@ -60,6 +66,26 @@ def main() -> int:
             traceback.print_exc()
             failed.append(name)
             print(f"FAILED {name}: {e!r}", flush=True)
+
+    if "--shapes" in sys.argv[1:]:
+        from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref
+        for hd in cs.WIDE_HEAD_DIMS:
+            for causal in (True, False):
+                for dtype in cs.FLASH_DTYPES:
+                    case = (*cs.SHAPE_FLASH, hd, causal, 0)
+                    check(f"flash {case} {dtype}", cs.check_flash, torch, ops, attention_ref,
+                          case, dtype)
+        for case in [(1, 300, 8, 2, 320, True, 100), (2, 129, 48, 1, 512, True, 0)]:
+            for dtype in cs.FLASH_DTYPES:
+                check(f"flash {case} {dtype}", cs.check_flash, torch, ops, attention_ref,
+                      case, dtype)
+        wide = [(*cs.WIDE_SSD_CASE, n) for n in cs.WIDE_STATES] + [(1, 2, 300, 3, 20, 260)]
+        for case in wide + cs.SSD_CASES + [cs.SSD_SLICE_CASE, cs.SSD_LARGE_CASE]:
+            for dtype in cs.FLASH_DTYPES:
+                check(f"ssd {case} {dtype}", cs.check_ssd, torch, ssd_ops, ssd_scan_ref, case,
+                      dtype, model=None if dtype == "float32" else ssd_scan_tf32_ref)
+        print(f"[quick_check] {time.monotonic() - t0:.1f} s; failed: {failed or 'none'}")
+        return 1 if failed else 0
 
     for case in cs.HD80_CASES + [cs.FAMILY_FLASH_CASES["hubert-xlarge"]]:
         for dtype in cs.FLASH_DTYPES:

@@ -50,7 +50,10 @@
 // leading byte offset. Every other head dim up to 256 is zero-padded by the
 // wrapper to the next of these (zero columns add exactly 0 to Q.K^T). At
 // HD = 256 a consumer thread holds 128 accumulator registers and a block
-// ~194 KB of shared memory, so one block runs an SM.
+// ~194 KB of shared memory, so one block runs an SM. A head dim over 256 (a
+// multiple of 64 once the wrapper has padded it) takes flash_fwd_wide_kernel
+// below: output columns in blocks of 256, Q.K^T recomputed by each block
+// with Q and K streamed in 64-column chunks.
 //
 // Entry point: flash_fwd_sm90(...) with a plain C interface (loaded with
 // ctypes), launching on the given stream and returning cudaGetLastError().
@@ -327,9 +330,236 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   return cudaGetLastError();
 }
 
+// ---- head dims over 256 -----------------------------------------------------
+// wgmma's n stops at 256, so P.V cannot cover such a head dim in one
+// product; and a Q tile with a K / V ring outgrows shared memory (at hd 512
+// Q alone is 64 KB, a 2-stage ring of K and V tiles 4 x 64 KB). So:
+//   - the output columns are cut into blocks of CW = 256 (the last one
+//     ragged, a multiple of 64), one block of the grid each;
+//   - every block recomputes S = Q.K^T over the whole head dim, in k-steps
+//     of one 64-column atom: the producer streams (Q chunk, K chunk) pairs
+//     through a ring of their own, so shared memory does not grow with hd;
+//   - P.V covers only the block's columns, one m64n64k16 wgmma per
+//     64-column atom of V (their accumulators are the m64n256 layout's
+//     quarters, so the epilogue is the one above).
+// S is computed ceil(hd / 256) times; at hd 512 that is 3 products of the
+// work of 2. Shared memory: the Q / K ring (4 x 16 KB), the V ring (2 x 32
+// KB) and the output staging (33 KB), ~163 KB at every hd: one block an SM.
+// The wrapper pads hd to a multiple of 64 (zero columns add 0 to Q.K^T).
+namespace wide {
+constexpr int CW = 256;                      // output columns a block
+constexpr int KC = 64;                       // head-dim columns a k-step: one atom
+constexpr int ROWB = KC * 2;                 // bytes a row of an atom (128-byte swizzle)
+constexpr int CHUNK = BQ * ROWB;             // a Q or K chunk (BQ = BK = 64 rows)
+constexpr int QK_STAGES = 4;
+constexpr int QK_SLOT = 2 * CHUNK;           // Q chunk, then K chunk
+constexpr int V_STAGES = 2;
+constexpr int V_ATOM = BK * ROWB;            // 64 keys x 64 columns of V
+constexpr int V_SLOT = (CW / KC) * V_ATOM;
+constexpr int OP = CW + 8;                   // output staging pitch, elements
+constexpr int O_BYTES = BQ * OP * 2;
+constexpr int SMEM = 1024 + QK_STAGES * QK_SLOT + V_STAGES * V_SLOT + O_BYTES +
+                     2 * (QK_STAGES + V_STAGES) * 8;
+static_assert(BQ == BK, "a Q chunk and a K chunk share one layout");
+}  // namespace wide
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S,
+                      int H, int KV, int HD, int causal, int window, float scale_log2) {
+  using namespace wide;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sqk = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sv = sqk + QK_STAGES * QK_SLOT;
+  T* so = reinterpret_cast<T*>(sv + V_STAGES * V_SLOT);
+  uint64_t* qk_full = reinterpret_cast<uint64_t*>(sv + V_STAGES * V_SLOT + O_BYTES);
+  uint64_t* qk_empty = qk_full + QK_STAGES;
+  uint64_t* v_full = qk_empty + QK_STAGES;
+  uint64_t* v_empty = v_full + V_STAGES;
+
+  const int ncb = (HD + CW - 1) / CW;          // column blocks
+  const int h = blockIdx.x / ncb, col0 = blockIdx.x % ncb * CW, b = blockIdx.y;
+  const int natom = min(CW, HD - col0) / KC;   // V atoms (output columns / 64) here
+  const int nk = HD / KC;                      // k-steps of Q.K^T
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int kvh = h / (H / KV);
+  const int k_hi = causal ? min(S, q0 + BQ) : S;
+  const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_lo / BK, t_end = (k_hi + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QK_STAGES; ++s) {
+      mbar_init(&qk_full[s], 1);
+      mbar_init(&qk_empty[s], 128);
+    }
+    for (int s = 0; s < V_STAGES; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 4) {
+    // producer: for each key tile, its nk (Q chunk, K chunk) pairs, then
+    // its V atoms of this block's columns; each ring in the order the
+    // consumers take it
+    if (lane == 0) {
+      for (int t = t_begin, i = 0, j = 0; t < t_end; ++t, ++j) {
+        for (int c = 0; c < nk; ++c, ++i) {
+          const int s = i % QK_STAGES;
+          mbar_wait(&qk_empty[s], ((i / QK_STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(&qk_full[s], QK_SLOT);
+          tma_load_4d(sqk + s * QK_SLOT, &tq, &qk_full[s], c * KC, h, q0, b);
+          tma_load_4d(sqk + s * QK_SLOT + CHUNK, &tk, &qk_full[s], c * KC, kvh, t * BK, b);
+        }
+        const int s = j % V_STAGES;
+        mbar_wait(&v_empty[s], ((j / V_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&v_full[s], natom * V_ATOM);
+        for (int a = 0; a < natom; ++a)
+          tma_load_4d(sv + s * V_SLOT + a * V_ATOM, &tv, &v_full[s], col0 + a * KC, kvh,
+                      t * BK, b);
+      }
+    }
+    return;
+  }
+
+  const int row_hi = q0 + BQ - 1;
+  const int r0 = q0 + 16 * warp + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  constexpr Swizzle SWZ = swizzle_for_row_bytes(ROWB);
+  // Q and K chunks K-major; V MN-major, one atom a wgmma
+  const uint64_t qk_desc = make_desc(sqk, 16, 8 * ROWB, SWZ);
+  const uint64_t v_desc = make_desc(sv, 8 * ROWB, 8 * ROWB, SWZ);
+
+  // acc[a]: the m64n64 accumulator of atom a, the m64n256 layout's quarter a
+  float acc[CW / KC][KC / 2];
+#pragma unroll
+  for (int a = 0; a < CW / KC; ++a)
+#pragma unroll
+    for (int e = 0; e < KC / 2; ++e) acc[a][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = t_begin, i = 0, j = 0; t < t_end; ++t, ++j) {
+    const int k0 = t * BK;
+    // S = Q.K^T over the whole head dim, one ring slot a k-step
+    float sc[BK / 2];
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+    for (int c = 0; c < nk; ++c, ++i) {
+      const int s = i % QK_STAGES;
+      mbar_wait(&qk_full[s], (i / QK_STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)  // the first k-step overwrites sc
+        Mma<BK>::ss<T, 0, 0>(sc, desc_advance(qk_desc, s * QK_SLOT + kk * 32),
+                             desc_advance(qk_desc, s * QK_SLOT + CHUNK + kk * 32),
+                             c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&qk_empty[s]);
+    }
+
+    float alpha[2];
+    if ((causal && k0 + BK - 1 > q0) || (window && k0 <= row_hi - window) || k0 + BK > S)
+      softmax_step<true>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
+    else
+      softmax_step<false>(sc, m, l, alpha, scale_log2, r0, c0, k0, S, causal, window);
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int e = 0; e < BK / 2; e += 2) pa[e / 8][e % 8 / 2] = pack2<T>(sc[e], sc[e + 1]);
+
+    // O = alpha * O + P.V on this block's columns, an atom a wgmma
+#pragma unroll
+    for (int a = 0; a < CW / KC; ++a) {
+#pragma unroll
+      for (int e = 0; e < KC / 2; ++e) acc[a][e] *= alpha[(e / 2) % 2];
+      fence_regs(acc[a]);
+    }
+    const int s = j % V_STAGES;
+    mbar_wait(&v_full[s], (j / V_STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int a = 0; a < CW / KC; ++a)
+        if (a < natom)
+          Mma<KC>::rs<T, 1>(acc[a], pa[kk],
+                            desc_advance(v_desc, s * V_SLOT + a * V_ATOM + kk * 16 * ROWB), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int a = 0; a < CW / KC; ++a) fence_regs(acc[a]);
+    mbar_arrive(&v_empty[s]);
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = l[r] == 0.f ? 1.f : l[r];
+  }
+  const int lr = r0 - q0;
+#pragma unroll
+  for (int e = 0; e < CW / 8; ++e)
+    if (e < natom * (KC / 8))
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(so + (lr + 8 * r) * OP + 8 * e + c0) =
+            pack2<T>(acc[e / 8][4 * (e % 8) + 2 * r] / den[r],
+                     acc[e / 8][4 * (e % 8) + 2 * r + 1] / den[r]);
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  const int chunks = natom * (KC / 8);  // 16-byte chunks a row
+  for (int e = threadIdx.x; e < BQ * chunks; e += 128) {
+    const int rr = e / chunks, c = e % chunks, row = q0 + rr;
+    if (row < S)
+      *reinterpret_cast<uint4*>(o + ((static_cast<long long>(b) * S + row) * H + h) * HD +
+                                col0 + 8 * c) =
+          *reinterpret_cast<const uint4*>(so + rr * OP + 8 * c);
+  }
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                int KV, int HD, int causal, int window, float scale, cudaStream_t stream) {
+  using namespace wide;
+  if (HD % KC) return cudaErrorInvalidValue;
+  const uint64_t hd = HD, e = 2, s = S, b = B, nh = H, nkv = KV;
+  CUtensorMap tq, tk, tv;
+  int err = make_tensor_map<4>(&tq, is_f16<T>, q, {hd, nh, s, b},
+                               {hd * e, nh * hd * e, s * nh * hd * e}, {KC, 1, BQ, 1});
+  if (!err)
+    err = make_tensor_map<4>(&tk, is_f16<T>, k, {hd, nkv, s, b},
+                             {hd * e, nkv * hd * e, s * nkv * hd * e}, {KC, 1, BK, 1});
+  if (!err)
+    err = make_tensor_map<4>(&tv, is_f16<T>, v, {hd, nkv, s, b},
+                             {hd * e, nkv * hd * e, s * nkv * hd * e}, {KC, 1, BK, 1});
+  if (err) return err;
+  auto kern = flash_fwd_wide_kernel<T>;
+  static std::atomic<int> smem_set_on{-1};
+  int dev = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess && smem_set_on.load() != dev) {
+    ce = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (ce == cudaSuccess) smem_set_on.store(dev);
+  }
+  if (ce != cudaSuccess) return ce;
+  const dim3 grid(H * ((HD + CW - 1) / CW), B, (S + BQ - 1) / BQ);
+  const float scale_log2 = static_cast<float>(1.4426950408889634 * double(scale));
+  kern<<<grid, NTHREADS, SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H, KV, HD, causal,
+                                         window, scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
              int KV, int hd, int causal, int window, float scale, cudaStream_t stream) {
+  if (hd > 256) return launch_wide<T>(q, k, v, o, B, S, H, KV, hd, causal, window, scale, stream);
   switch (hd) {
     case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
@@ -345,8 +575,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous, 16-byte
 // aligned, of one dtype: bf16 (is_f16 = 0) or fp16 (is_f16 = 1).
-// hd in {32, 64, 80, 96, 128, 256}; scale multiplies Q.K^T (1/sqrt of the
-// head dim before any padding).
+// hd in {32, 64, 80, 96, 128, 256} or a multiple of 64 over 256; scale
+// multiplies Q.K^T (1/sqrt of the head dim before any padding).
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
                               int S, int H, int KV, int hd, int causal, int window,
                               int is_f16, float scale, void* stream) {

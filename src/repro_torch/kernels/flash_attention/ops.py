@@ -14,8 +14,11 @@ at the heads of the sources.
 Both kernels are built for head dims ``WIDTHS``. Any other head dim up to
 256 is zero-padded to the next of them: q and k on the contracted axis, v
 on the output axis, with the scale of the true width; the output is sliced
-back. Zero columns add exactly 0 to q.k, so padding changes no result.
-Above 256 (wgmma's largest n) the wrapper raises.
+back. Zero columns add exactly 0 to q.k, so padding changes no result. A
+head dim over 256 (wgmma's largest n) is padded to a multiple of
+``WIDE_STEP`` and runs in column passes of at most ``WIDE_BLOCK`` output
+columns, one block of the grid each, every pass recomputing q.k over the
+whole head dim (``launch_plan``).
 
 A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
@@ -39,6 +42,9 @@ from .ref import attention_ref
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: head dims the kernels are built for; any other up to the last is padded
 WIDTHS = (32, 64, 80, 96, 128, 256)
+#: past the last width: the head dim padded to a multiple of WIDE_STEP, the
+#: output columns in passes of at most WIDE_BLOCK
+WIDE_STEP, WIDE_BLOCK = 64, 256
 #: dtype -> (source, C entry point, trailing int arguments before the scale)
 ROUTES = {
     torch.bfloat16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (0,)),
@@ -82,22 +88,26 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v must be on one device")
 
 
-def padded_width(hd):
-    """The kernel width that head dim ``hd`` runs at: the least of
-    ``WIDTHS`` that is at least ``hd``."""
+def launch_plan(hd):
+    """(width, passes) for head dim ``hd``: up to the last of ``WIDTHS`` the
+    least of them that is at least ``hd``, in one pass; past it ``hd``
+    rounded up to a multiple of ``WIDE_STEP``, in ceil(width / WIDE_BLOCK)
+    column passes."""
+    if hd < 1:
+        raise ValueError(f"flash_attention: head_dim {hd} < 1")
     for w in WIDTHS:
         if hd <= w:
-            return w
-    raise ValueError(f"flash_attention: head_dim {hd} over {WIDTHS[-1]}, wgmma's largest n "
-                     f"(ROADMAP.md, Queue 2, K1: head dims over 256)")
+            return w, 1
+    w = -(-hd // WIDE_STEP) * WIDE_STEP
+    return w, -(-w // WIDE_BLOCK)
 
 
 def run_padded(q, k, v, causal, window, fn):
     """``fn(q, k, v, causal, window, scale)`` at the kernel width of q's head
-    dim: q, k and v zero-padded on the last axis up to ``padded_width``,
+    dim: q, k and v zero-padded on the last axis up to ``launch_plan``'s width,
     ``scale`` = 1/sqrt(true head dim), and the output sliced back."""
     hd = q.shape[-1]
-    pad = padded_width(hd) - hd
+    pad = launch_plan(hd)[0] - hd
     if pad:
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
     out = fn(q, k, v, causal, window, 1.0 / math.sqrt(hd))
@@ -117,7 +127,7 @@ def _forward(q, k, v, causal, window):
 
 
 def _launch(q, k, v, causal, window, scale):
-    """One launch of the kernel of q's dtype at a width in ``WIDTHS``."""
+    """One launch of the kernel of q's dtype at a width of ``launch_plan``."""
     B, S, H, hd = q.shape
     source, name, extra = route(q.dtype)
     if S == 0 or B == 0:

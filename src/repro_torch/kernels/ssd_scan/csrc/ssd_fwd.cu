@@ -40,7 +40,14 @@
 // N up to 256 takes P-tiles of 32 columns (at 64 its shared memory would be
 // 232,448 bytes, the whole of what a block may use; at 32, 191,488). The
 // last P-tile may be ragged, so any P is taken (x is read an element at a
-// time).
+// time). N over 256 is cut into slices of NSLICE = 256 state rows, a grid
+// axis: a slice's state rows depend on no other slice's, and its products
+// over n (C.B^T and C.h) take its own columns of B and C, so y is the sum
+// of the slices' parts. Each slice writes its part (D.x in slice 0 only)
+// to an fp32 scratch buffer, and ssd_sum_slices_kernel adds them in a
+// fixed order. (Each slice computes the intra-chunk term on its own
+// columns of C.B^T; together they are the whole term, at the work of one
+// per slice.)
 //
 // Entry point: ssd_fwd(...) with a plain C interface (loaded with ctypes),
 // launching on the given stream and returning cudaGetLastError().
@@ -53,7 +60,7 @@ namespace {
 constexpr int NT = 256;       // threads per block
 constexpr int TILE = 64;      // rows of a chunk tile
 constexpr int QMAX = 256;     // longest (sub-)chunk a block walks at once
-constexpr int NMAX = 256;     // largest state dimension taken
+constexpr int NSLICE = 256;   // state rows a block takes: one slice of N
 constexpr int PTMAX = 64;     // widest P-tile (32 where N > 128)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -73,14 +80,14 @@ __device__ __forceinline__ void outer4(float (&acc)[4][4], const float4 a, const
     for (int l = 0; l < 4; ++l) acc[k][l] = fmaf(av[k], bv[l], acc[k][l]);
 }
 
-// rows [r0, r0 + TILE) of a (Q, N) chunk of B or C, transposed into dst[n][r];
-// rows at or past Q are zero
+// rows [r0, r0 + TILE) of N columns of a chunk of B or C (rows `ld` floats
+// apart), transposed into dst[n][r]; rows at or past Q are zero
 __device__ __forceinline__ void load_transposed(float* dst, const float* src, int r0,
-                                                int Q, int N, int tid) {
+                                                int Q, int N, int ld, int tid) {
   for (int e = tid; e < TILE * (N / 4); e += NT) {
     const int r = e % TILE, n = 4 * (e / TILE);
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < Q) v = ld4(src + static_cast<long long>(r0 + r) * N + n);
+    if (r0 + r < Q) v = ld4(src + static_cast<long long>(r0 + r) * ld + n);
     dst[(n + 0) * TILE + r] = v.x;
     dst[(n + 1) * TILE + r] = v.y;
     dst[(n + 2) * TILE + r] = v.z;
@@ -107,8 +114,14 @@ __global__ void __launch_bounds__(NT)
 ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ Bm, const float* __restrict__ Cm,
                const float* __restrict__ la, const float* __restrict__ Dv,
-               T* __restrict__ y, float* __restrict__ h_last,
-               int nc, int Q, int H, int P, int N, int PT) {
+               T* __restrict__ y, float* __restrict__ h_last, float* __restrict__ yp,
+               int nsl, int nc, int Q, int H, int P, int Nall, int PT) {
+  // the state's slice of this block: rows [nbase, nbase + N) of the Nall
+  // of B, C and h. Slices are independent but for y: with two or more (yp
+  // set) each writes its part of y to yp[slice] (its own columns of C.B^T
+  // and C.h; D.x in slice 0), and ssd_sum_slices_kernel adds them up
+  const int slice = blockIdx.z % nsl, b = blockIdx.z / nsl;
+  const int nbase = slice * NSLICE, N = min(NSLICE, Nall - nbase);
   extern __shared__ __align__(16) float smem[];
   float* lc = smem;                  // [QMAX] cumulative log-decay
   float* dts = lc + QMAX;            // [QMAX] dt
@@ -123,8 +136,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int p_base = blockIdx.x * PT;
   const int pv = min(PT, P - p_base);    // valid columns of this P-tile
   const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float d_h = Dv[h];
+  const float d_h = slice == 0 ? Dv[h] : 0.f;
   // the 4x4 micro-tile of a (TILE x TILE) or (TILE x PT) tile this thread owns
   const int mr = 4 * (tid % 16);
   const int mc = 4 * (tid / 16);
@@ -143,8 +155,8 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const long long row0 = (static_cast<long long>(b) * nc + u / nsub) * Qc + s_first;
     const int Q = min(QMAX, Qc - s_first);    // this unit's steps
     const int n_tiles = (Q + TILE - 1) / TILE;
-    const float* Bc = Bm + row0 * N;
-    const float* Cc = Cm + row0 * N;
+    const float* Bc = Bm + row0 * Nall + nbase;
+    const float* Cc = Cm + row0 * Nall + nbase;
     __syncthreads();   // the previous unit is done with lc and the state
     if (tid < 32) {    // warp 0: inclusive prefix sum of la over the unit
       const int per = (Q + 31) / 32;
@@ -176,7 +188,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int it = 0; it < n_tiles; ++it) {
       const int i0 = it * TILE;
       __syncthreads();   // ct and ws are free; dts, dec, lc are visible
-      load_transposed(ct, Cc, i0, Q, N, tid);
+      load_transposed(ct, Cc, i0, Q, N, Nall, tid);
       __syncthreads();
       float acc[4][4] = {};
       if (owns_y) {      // inter-chunk term from the state before this chunk
@@ -192,7 +204,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int jt = 0; jt <= it; ++jt) {   // intra-chunk term, column tiles j <= i
         const int j0 = jt * TILE;
         __syncthreads();   // bt, xs, ws are free
-        load_transposed(bt, Bc, j0, Q, N, tid);
+        load_transposed(bt, Bc, j0, Q, N, Nall, tid);
         load_xdt(xs, x, dts, row0, j0, Q, H, h, P, p_base, PT, pv, tid);
         __syncthreads();
         float s[4][4] = {};
@@ -227,11 +239,16 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           for (int l = 0; l < 4; ++l) ws[(mr + k) * PT + mc + l] = acc[k][l];
       }
       __syncthreads();
+      const long long rows = static_cast<long long>(gridDim.z / nsl) * nc * Qc;
       for (int e = tid; e < TILE * PT; e += NT) {
         const int r = e / PT, p = e % PT;
         if (i0 + r < Q && p < pv) {
           const long long off = ((row0 + i0 + r) * H + h) * P + p_base + p;
-          store(y + off, ws[e] + d_h * to_f32(x[off]));
+          const float v = ws[e] + d_h * to_f32(x[off]);
+          if (yp != nullptr)
+            yp[slice * rows * H * P + off] = v;
+          else
+            store(y + off, v);
         }
       }
     }
@@ -245,7 +262,7 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         const int c = e / nq, n = 4 * (e % nq);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (j0 + c < Q) {
-          v = ld4(Bc + static_cast<long long>(j0 + c) * N + n);
+          v = ld4(Bc + static_cast<long long>(j0 + c) * Nall + n);
           const float d = dec[j0 + c];
           v.x *= d; v.y *= d; v.z *= d; v.w *= d;
         }
@@ -286,17 +303,32 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
   for (int e = tid; e < N * PT; e += NT) {
     const int n = e / PT, p = e % PT;
-    if (p < pv) h_last[((static_cast<long long>(b) * H + h) * N + n) * P + p_base + p] = hs[e];
+    if (p < pv)
+      h_last[((static_cast<long long>(b) * H + h) * Nall + nbase + n) * P + p_base + p] = hs[e];
+  }
+}
+
+// N over 256: y = the sum of the slices' parts, slice 0 first, in one fixed
+// order (no atomics: the result does not depend on which block ran first)
+__global__ void __launch_bounds__(256)
+ssd_sum_slices_kernel(const float* __restrict__ yp, float* __restrict__ y, long long n,
+                      int nsl) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += gridDim.x * 256LL) {
+    float v = yp[i];
+    for (int s = 1; s < nsl; ++s) v += yp[s * n + i];
+    y[i] = v;
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
-                   const void* la, const void* D, void* y, void* h_last, int b, int nc,
-                   int Q, int H, int P, int N, cudaStream_t stream) {
-  // P-tiles of up to 64 columns (32 where N > 128), a multiple of 4 (the
+                   const void* la, const void* D, void* y, void* h_last, void* yp, int b,
+                   int nc, int Q, int H, int P, int Nall, cudaStream_t stream) {
+  // slices of at most NSLICE state rows, a block each; P-tiles of up to 64
+  // columns (32 where a slice has over 128 rows), a multiple of 4 (the
   // micro-tiles), the last one ragged
-  const int pt_max = N > NMAX / 2 ? PTMAX / 2 : PTMAX;
+  const int nsl = (Nall + NSLICE - 1) / NSLICE, N = Nall < NSLICE ? Nall : NSLICE;
+  const int pt_max = N > NSLICE / 2 ? PTMAX / 2 : PTMAX;
   const int PT = P < pt_max ? (P + 3) / 4 * 4 : pt_max;
   const int smem = (3 * QMAX + 2 * N * TILE + N * PT + TILE * PT + TILE * TILE) *
                    static_cast<int>(sizeof(float));
@@ -307,18 +339,25 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && smem_set_on.load() != dev) {
-    const int most = (3 * QMAX + 2 * NMAX * TILE + NMAX * (PTMAX / 2) + TILE * (PTMAX / 2) +
+    const int most = (3 * QMAX + 2 * NSLICE * TILE + NSLICE * (PTMAX / 2) + TILE * (PTMAX / 2) +
                       TILE * TILE) * static_cast<int>(sizeof(float));
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err == cudaSuccess) smem_set_on.store(dev);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid((P + PT - 1) / PT, H, b);
+  float* parts = nsl > 1 ? static_cast<float*>(yp) : nullptr;
+  const dim3 grid((P + PT - 1) / PT, H, b * nsl);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(la),
-      static_cast<const float*>(D), static_cast<T*>(y), static_cast<float*>(h_last), nc, Q,
-      H, P, N, PT);
+      static_cast<const float*>(D), static_cast<T*>(y), static_cast<float*>(h_last), parts,
+      nsl, nc, Q, H, P, Nall, PT);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == nullptr) return err;
+  const long long n_y = static_cast<long long>(b) * nc * Q * H * P;
+  const long long want = (n_y + 255) / 256;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  ssd_sum_slices_kernel<<<blocks, 256, 0, stream>>>(parts, static_cast<float*>(y), n_y, nsl);
   return cudaGetLastError();
 }
 
@@ -326,13 +365,15 @@ cudaError_t launch(const void* x, const void* dt, const void* B, const void* C,
 
 // x (b,nc,Q,H,P) and y (b,nc*Q,H,P), dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D
 // (H,) and h_last (b,H,N,P), all fp32 and contiguous, B and C 16-byte
-// aligned. Q >= 1; N a multiple of 4 up to 256; P >= 1.
+// aligned; yp an fp32 scratch buffer of nsl*b*nc*Q*H*P elements, nsl =
+// ceil(N / 256), where N > 256 (else unused, may be null). Q >= 1; N a
+// multiple of 4; P >= 1.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* B, const void* C,
-                       const void* la, const void* D, void* y, void* h_last, int b,
-                       int nc, int Q, int H, int P, int N, void* stream) {
-  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N <= NMAX && N % 4 == 0 &&
-                  P >= 1;
+                       const void* la, const void* D, void* y, void* h_last, void* yp,
+                       int b, int nc, int Q, int H, int P, int N, void* stream) {
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N % 4 == 0 && P >= 1 &&
+                  (N <= NSLICE || yp != nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch<float>(x, dt, B, C, la, D, y, h_last, b, nc, Q, H, P, N,
+  return static_cast<int>(launch<float>(x, dt, B, C, la, D, y, h_last, yp, b, nc, Q, H, P, N,
                                         static_cast<cudaStream_t>(stream)));
 }

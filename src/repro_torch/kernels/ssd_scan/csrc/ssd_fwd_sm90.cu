@@ -74,7 +74,18 @@
 //   - N up to 256: a B or C tile is 8 atoms (4 ring slots), the state four
 //     64-row tiles, two a warpgroup. Shared memory at PT = 64 would pass
 //     the 227 KB a block may use, so N > 128 takes PT = 32 (~164 KB).
-//     Columns of N past a multiple of 32 load as zeros. Two faster forms were dropped: the loader
+//     Columns of N past a multiple of 32 load as zeros;
+//   - N over 256: the state is cut into slices of NSLICE = 256 rows, a grid
+//     axis (the registers and shared memory of one block stop at 256). The
+//     rows h[n, :] of one slice do not depend on the others', so each block
+//     carries its slice's state through the chunks alone; C.h is a sum over
+//     N, so each slice writes its part of y in fp32 to a scratch buffer
+//     (slice 0 adding the intra-chunk term and D.x, once) and a last kernel
+//     adds the parts in a fixed order and casts. C.B^T is a sum over N too:
+//     ssd_cb_exact_kernel takes it in passes of 256 columns, in one
+//     accumulator, in exact fp32 (TF32 operands put outputs past the
+//     tolerance there).
+// Two faster forms were dropped: the loader
 // warp computing the step vectors (lc, scl, vdt) for the next chunk, and
 // persistent blocks that walk several (P-tile, head, batch) units. Each
 // wrote wrong rows of y (and h) at random on shapes with 2-3 row tiles a
@@ -82,7 +93,8 @@
 // never did in the same stress runs; the cause was not found.
 //
 // Entry point: ssd_fwd_sm90(...) with a plain C interface (loaded with
-// ctypes); it launches ssd_cb_kernel then the scan kernel on the given
+// ctypes); it launches ssd_cb_kernel then the scan kernel (N over 256:
+// ssd_cb_exact_kernel, the sliced scan, ssd_sum_slices_kernel) on the given
 // stream and returns cudaGetLastError().
 #include <atomic>
 
@@ -94,7 +106,7 @@ using namespace hopper;
 
 constexpr int TILE = 64;           // rows of a chunk tile
 constexpr int QMAX = 256;          // longest (sub-)chunk a block walks at once
-constexpr int NMAX = 256;          // largest state dimension taken
+constexpr int NSLICE = 256;        // state rows a block takes: one slice of N
 constexpr int ATOM_BYTES = TILE * 128;  // 64 rows of one 128-byte swizzle atom
 constexpr int SLOT = 2 * ATOM_BYTES;     // a ring slot: two atoms, 64 x 64 fp32
 constexpr int STAGES = 2;               // depth of each consumer warpgroup's TMA ring
@@ -227,6 +239,74 @@ ssd_cb_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CU
   const int row = it * TILE + 16 * warp + lane / 4;
   float* out =
       cb + (static_cast<long long>(blockIdx.y) * QT + row) * QT + jt * TILE + 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      *reinterpret_cast<float2*>(out + 8 * q * QT + 8 * j) =
+          make_float2(d[4 * j + 2 * q], d[4 * j + 2 * q + 1]);
+}
+
+// Past 256 states (a grid of ssd_cb_exact_kernel in place of the above):
+// the same tiles of CB in passes of 256 columns of C and B (NSLICE), added up
+// in one accumulator, in exact fp32 FMAs on the CUDA cores. Over 512 states
+// the TF32 truncation of C and B moved outputs where y cancels past the
+// plain version's tolerance (measured against the CPU model of the
+// roundings); the products of one tile pair are few.
+inline constexpr int CB_EXACT_SMEM = 1024 + 2 * 8 * ATOM_BYTES + 8;
+
+__global__ void __launch_bounds__(WG)
+ssd_cb_exact_kernel(const __grid_constant__ CUtensorMap tc,
+                    const __grid_constant__ CUtensorMap tb, float* __restrict__ cb, int QT,
+                    int nsub, int npass) {
+  constexpr int NA = NSLICE / 32;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sc = align1024(smem_raw);
+  uint8_t* sb = sc + NA * ATOM_BYTES;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sb + NA * ATOM_BYTES);
+  int it = 0, jt = blockIdx.x;
+  while (jt > it) jt -= ++it;      // the blockIdx.x-th causal pair (it, jt)
+  const int bc = blockIdx.y / nsub, s0 = blockIdx.y % nsub * QMAX;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the accumulator of a wgmma's layout, so that the store is the one above:
+  // d[4j + e] is row r, column 8j + cc + e, and d[4j + 2 + e] row r + 8
+  const int r = 16 * warp + lane / 4, cc = 2 * (lane % 4);
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  for (int ps = 0; ps < npass; ++ps) {
+    if (tid == 0) {
+      mbar_arrive_expect_tx(bar, 2 * NA * ATOM_BYTES);
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        tma_load_3d(sc + a * ATOM_BYTES, &tc, bar, 32 * (NA * ps + a), s0 + it * TILE, bc);
+        tma_load_3d(sb + a * ATOM_BYTES, &tb, bar, 32 * (NA * ps + a), s0 + jt * TILE, bc);
+      }
+    }
+    mbar_wait(bar, ps & 1);
+    for (int n = 0; n < 32 * NA; ++n) {
+      const float c0 = lds(sc, swz(r, n, TILE)), c1 = lds(sc, swz(r + 8, n, TILE));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float bv = lds(sb, swz(8 * j + cc + e, n, TILE));
+          d[4 * j + e] = fmaf(c0, bv, d[4 * j + e]);
+          d[4 * j + 2 + e] = fmaf(c1, bv, d[4 * j + 2 + e]);
+        }
+    }
+    __syncthreads();  // every thread is done with this pass's tiles
+  }
+
+  float* out = cb + (static_cast<long long>(blockIdx.y) * QT + it * TILE + r) * QT + jt * TILE +
+               cc;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -416,7 +496,11 @@ __device__ __forceinline__ void mma_xt(float (&acc)[PT / 2], uint32_t (&a)[8][4]
   wgmma_commit();
 }
 
-template <typename T, int PT, int NA>
+// SLICED: the block takes slice blockIdx.z % nsl of the state (N over 256,
+// NA = 8). The unsliced instantiations must not carry the slice code: with
+// it compiled in, though never run there, the scan wrote wrong y at random
+// at (3, 3, 192, 90, 64, 96) (ROADMAP.md, Queue 2, K2 item 7).
+template <typename T, int PT, int NA, bool SLICED>
 __global__ void __launch_bounds__(NTHREADS, 1)
 ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
                      const __grid_constant__ CUtensorMap tb,
@@ -424,8 +508,8 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
                      const __grid_constant__ CUtensorMap ty, int y_tma,
                      const T* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ la, const float* __restrict__ Dv,
-                     T* __restrict__ y, float* __restrict__ h_last, int nc,
-                     int Q, int H, int P, int N) {
+                     T* __restrict__ y, float* __restrict__ h_last,
+                     float* __restrict__ yp, int nsl, int nc, int Q, int H, int P, int N) {
   using L = ScanLayout<PT, NA>;
   constexpr int ND = PT / 2;           // accumulator registers of a 64 x PT tile
   constexpr int SPT = SLOTS<NA>;       // ring slots of a B or C tile
@@ -448,7 +532,15 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
   uint64_t* in_full = emptys + 2 * STAGES;  // a unit's x, dt, la have landed
   uint64_t* in_empty = in_full + 1;         // the consumers are done with the staged x
 
-  const int p0 = blockIdx.x * PT, h = blockIdx.y, b = blockIdx.z;
+  const int p0 = blockIdx.x * PT, h = blockIdx.y;
+  // the state's slice of this block: rows [n0, n0 + Ns) of N, B and C
+  // columns from atom sa. Slice 0 alone adds the intra-chunk term and D.x.
+  // With more than one slice (SLICED) each block writes its part of y in
+  // fp32 to yp[slice], and ssd_sum_slices_kernel adds them up.
+  const int slice = SLICED ? blockIdx.z % nsl : 0;
+  const int b = SLICED ? blockIdx.z / nsl : blockIdx.z;
+  const int n0 = slice * NSLICE, Ns = SLICED ? min(NSLICE, N - n0) : N, sa = n0 / 32;
+  const bool intra_on = slice == 0;
   // the units: sub-chunk u % nsub (QMAX steps, the last one shorter) of
   // chunk u / nsub, in order; a unit's first step is s0 in its chunk
   const int nsub = (Q + QMAX - 1) / QMAX, nu = nc * nsub;
@@ -508,15 +600,16 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
         for (int it = 0; it < nt; ++it) {
           if (((it ^ (it >> 1)) & 1) != w) continue;
           for (int sp = 0; sp < SPT; ++sp)
-            produce_slot(ring, full, empty, n, &tc, 2 * sp, NA < 2 ? NA : 2, s0 + it * TILE,
-                         bc);
-          for (int jt = 0; jt <= it; ++jt)
-            produce_slot(ring, full, empty, n, &tcb, 2 * jt, 2, it * TILE, cbu);
+            produce_slot(ring, full, empty, n, &tc, sa + 2 * sp, NA < 2 ? NA : 2,
+                         s0 + it * TILE, bc);
+          if (intra_on)
+            for (int jt = 0; jt <= it; ++jt)
+              produce_slot(ring, full, empty, n, &tcb, 2 * jt, 2, it * TILE, cbu);
         }
         if (NST > 1 || w == 0)
           for (int m = 0; m < MW; ++m)
             for (int jt = 0; jt < nt; ++jt)
-              produce_slot(ring, full, empty, n, &tb, NST > 1 ? 2 * (MW * w + m) : 0,
+              produce_slot(ring, full, empty, n, &tb, sa + (NST > 1 ? 2 * (MW * w + m) : 0),
                            NA < 2 ? NA : 2, s0 + jt * TILE, bc);
       }
     }
@@ -667,11 +760,33 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
         ++n;
         mma_xt<PT>(acc, w, xt_desc, jt);
       };
-      for (int jt = 0; jt <= it; ++jt) {
-        intra(wa, jt);
-        wgmma_wait<0>();
-      }
+      if (intra_on)
+        for (int jt = 0; jt <= it; ++jt) {
+          intra(wa, jt);
+          wgmma_wait<0>();
+        }
       fence_regs(acc);
+      if constexpr (SLICED) {
+        // this slice's part of y in fp32, straight from the registers (D.x
+        // in slice 0 only); rows past the unit and columns past P left out
+        const long long rows = static_cast<long long>(gridDim.z / nsl) * nc * Q;
+#pragma unroll
+        for (int j = 0; j < ND / 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int I = q ? I1 : I0, p = 8 * j + 2 * c;
+            if (I < Qu && p < pv) {
+              float v0 = acc[4 * j + 2 * q], v1 = acc[4 * j + 2 * q + 1];
+              if (intra_on) {
+                v0 += d_h * lds(xt, swz(p, I, PT));
+                v1 += d_h * lds(xt, swz(p + 1, I, PT));
+              }
+              *reinterpret_cast<float2*>(
+                  yp + ((slice * rows + row0 + I) * H + h) * P + p0 + p) = make_float2(v0, v1);
+            }
+          }
+        continue;
+      }
       // epilogue: + D.x in fp32, one cast, staged in shared memory in the
       // swizzle of y's tensor map. One thread stores the tile by TMA (rows
       // past Q and columns past P lie outside the map and are not written);
@@ -716,7 +831,7 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
 #pragma unroll
         for (int i = 0; i < ND; ++i) hacc[m][i] *= decay;
         for (int jt = 0; jt < nt; ++jt) {
-          build_bd(wa, consume(ring, full, n), scl, jt * TILE, nb + TILE * m, N, r0, c);
+          build_bd(wa, consume(ring, full, n), scl, jt * TILE, nb + TILE * m, Ns, r0, c);
           release(empty, n);
           ++n;
           mma_xt<PT>(hacc[m], wa, xt_desc, jt);
@@ -737,11 +852,30 @@ ssd_scan_sm90_kernel(const __grid_constant__ CUtensorMap tc,
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int nr = nb + TILE * m + r0 + 8 * q, p = 8 * j + 2 * c;
-          if (nr < N && p < pv)
+          if (nr < Ns && p < pv)
             *reinterpret_cast<float2*>(
-                h_last + ((static_cast<long long>(b) * H + h) * N + nr) * P + p0 + p) =
+                h_last + ((static_cast<long long>(b) * H + h) * N + n0 + nr) * P + p0 + p) =
                 make_float2(hacc[m][4 * j + 2 * q], hacc[m][4 * j + 2 * q + 1]);
         }
+}
+
+// ---- y from its slices ------------------------------------------------------
+// N over 256: y = the sum of the slices' fp32 parts, slice 0 first, in one
+// fixed order (no atomics: the result does not depend on which block ran
+// first), cast once to x's type.
+__device__ __forceinline__ __nv_bfloat16 from_f32(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ __half from_f32(float v, __half*) { return __float2half_rn(v); }
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+ssd_sum_slices_kernel(const float* __restrict__ yp, T* __restrict__ y, long long n, int nsl) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += gridDim.x * 256LL) {
+    float v = yp[i];
+    for (int s = 1; s < nsl; ++s) v += yp[s * n + i];
+    y[i] = from_f32(v, static_cast<T*>(nullptr));
+  }
 }
 
 // sets a kernel's dynamic shared-memory limit once per device, not on every
@@ -759,9 +893,12 @@ cudaError_t smem_limit_once(Kernel kern, int bytes, std::atomic<int>& set_on) {
 
 template <typename T, int PT, int NA>
 int launch(const void* x, const void* dt, const void* B, const void* C, const void* la,
-           const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
-           int P, int N, cudaStream_t stream) {
-  // units of at most QMAX steps a chunk; C.B^T of each in (QT, QT) tiles
+           const void* D, void* y, void* h_last, void* cb, void* yp, int b, int nc, int Q,
+           int H, int P, int N, cudaStream_t stream) {
+  // slices of N, a block each (their parts of y in yp where there are two
+  // or more); units of at most QMAX steps a chunk; C.B^T of each in (QT, QT)
+  // tiles
+  const int nsl = (N + NSLICE - 1) / NSLICE;
   const int nsub = (Q + QMAX - 1) / QMAX;
   const int QT = min((Q + TILE - 1) / TILE * TILE, QMAX);
   const uint64_t bnc = static_cast<uint64_t>(b) * nc, q = Q, n = N, qt = QT;
@@ -780,51 +917,84 @@ int launch(const void* x, const void* dt, const void* B, const void* C, const vo
   // y (b*nc, Q, H, P) in x's type for the TMA store of y tiles, where its
   // rows are 16-byte aligned
   CUtensorMap ty{};
-  const int y_tma = P % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int y_tma = nsl == 1 && P % 8 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
   const uint64_t h_ = H, p_ = P;
   if (!err && y_tma)
     err = make_tensor_map<4>(&ty, is_f16<T>, y, {p_, h_, q, bnc},
                              {p_ * 2, h_ * p_ * 2, q * h_ * p_ * 2}, {PT, 1, TILE, 1});
   if (err) return err;
-  static std::atomic<int> cb_set_on{-1}, scan_set_on{-1};
-  auto cbk = ssd_cb_kernel<NA>;
-  auto scan = ssd_scan_sm90_kernel<T, PT, NA>;
   constexpr int SMEM = ScanLayout<PT, NA>::SMEM;
   static_assert(SMEM <= 227 * 1024, "shared memory of a block");
-  cudaError_t ce = smem_limit_once(cbk, CB_SMEM<NA>, cb_set_on);
-  if (ce == cudaSuccess) ce = smem_limit_once(scan, SMEM, scan_set_on);
-  if (ce != cudaSuccess) return ce;
   const int ntq = QT / TILE;
-  cbk<<<dim3(ntq * (ntq + 1) / 2, b * nc * nsub), WG, CB_SMEM<NA>, stream>>>(
-      tc, tb, static_cast<float*>(cb), QT, nsub);
-  ce = cudaGetLastError();
-  if (ce != cudaSuccess) return ce;
-  scan<<<dim3((P + PT - 1) / PT, H, b), NTHREADS, SMEM, stream>>>(
-      tc, tb, tcb, ty, y_tma, static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(la), static_cast<const float*>(D), static_cast<T*>(y),
-      static_cast<float*>(h_last), nc, Q, H, P, N);
-  return cudaGetLastError();
+  const dim3 cb_grid(ntq * (ntq + 1) / 2, b * nc * nsub);
+  const dim3 grid((P + PT - 1) / PT, H, b * nsl);
+  cudaError_t ce;
+  if (nsl == 1) {
+    static std::atomic<int> cb_set_on{-1}, scan_set_on{-1};
+    auto cbk = ssd_cb_kernel<NA>;
+    auto scan = ssd_scan_sm90_kernel<T, PT, NA, false>;
+    ce = smem_limit_once(cbk, CB_SMEM<NA>, cb_set_on);
+    if (ce == cudaSuccess) ce = smem_limit_once(scan, SMEM, scan_set_on);
+    if (ce != cudaSuccess) return ce;
+    cbk<<<cb_grid, WG, CB_SMEM<NA>, stream>>>(tc, tb, static_cast<float*>(cb), QT, nsub);
+    ce = cudaGetLastError();
+    if (ce != cudaSuccess) return ce;
+    scan<<<grid, NTHREADS, SMEM, stream>>>(
+        tc, tb, tcb, ty, y_tma, static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(la), static_cast<const float*>(D), static_cast<T*>(y),
+        static_cast<float*>(h_last), nullptr, 1, nc, Q, H, P, N);
+    return cudaGetLastError();
+  }
+  if constexpr (NA == NSLICE / 32) {
+    static std::atomic<int> cb_set_on{-1}, scan_set_on{-1};
+    auto scan = ssd_scan_sm90_kernel<T, PT, NA, true>;
+    ce = smem_limit_once(ssd_cb_exact_kernel, CB_EXACT_SMEM, cb_set_on);
+    if (ce == cudaSuccess) ce = smem_limit_once(scan, SMEM, scan_set_on);
+    if (ce != cudaSuccess) return ce;
+    ssd_cb_exact_kernel<<<cb_grid, WG, CB_EXACT_SMEM, stream>>>(
+        tc, tb, static_cast<float*>(cb), QT, nsub, nsl);
+    ce = cudaGetLastError();
+    if (ce != cudaSuccess) return ce;
+    float* parts = static_cast<float*>(yp);
+    scan<<<grid, NTHREADS, SMEM, stream>>>(
+        tc, tb, tcb, ty, y_tma, static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(la), static_cast<const float*>(D), static_cast<T*>(y),
+        static_cast<float*>(h_last), parts, nsl, nc, Q, H, P, N);
+    ce = cudaGetLastError();
+    if (ce != cudaSuccess) return ce;
+    const long long n_y = static_cast<long long>(b) * nc * Q * H * P;
+    const long long want = (n_y + 255) / 256;
+    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+    ssd_sum_slices_kernel<T><<<blocks, 256, 0, stream>>>(parts, static_cast<T*>(y), n_y, nsl);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;  // slices take 8 atoms (dispatch sends N > 128 there)
 }
 
 template <typename T, int PT>
 int by_state(const void* x, const void* dt, const void* B, const void* C, const void* la,
-             const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
-             int P, int N, cudaStream_t st) {
+             const void* D, void* y, void* h_last, void* cb, void* yp, int b, int nc, int Q,
+             int H, int P, int N, cudaStream_t st) {
   // 32-column atoms of a B or C tile: 1, 2 or 4 (N in (64, 96] loads an
   // atom of zeros)
-  return N <= 32   ? launch<T, PT, 1>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-         : N <= 64 ? launch<T, PT, 2>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-                   : launch<T, PT, 4>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+  if (N <= 32) return launch<T, PT, 1>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H,
+                                       P, N, st);
+  if (N <= 64) return launch<T, PT, 2>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H,
+                                       P, N, st);
+  return launch<T, PT, 4>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H, P, N, st);
 }
 
 template <typename T>
 int dispatch(const void* x, const void* dt, const void* B, const void* C, const void* la,
-             const void* D, void* y, void* h_last, void* cb, int b, int nc, int Q, int H,
-             int P, int N, cudaStream_t st) {
-  // N > 128: 8 atoms, and P-tiles of 32 so that shared memory fits
-  if (N > 128) return launch<T, 32, 8>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
-  return P <= 32 ? by_state<T, 32>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-                 : by_state<T, 64>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+             const void* D, void* y, void* h_last, void* cb, void* yp, int b, int nc, int Q,
+             int H, int P, int N, cudaStream_t st) {
+  // N > 128: 8 atoms (a slice of 256 a block past 256), and P-tiles of 32
+  // so that shared memory fits
+  if (N > 128) return launch<T, 32, 8>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H,
+                                       P, N, st);
+  if (P <= 32) return by_state<T, 32>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H,
+                                      P, N, st);
+  return by_state<T, 64>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H, P, N, st);
 }
 
 }  // namespace
@@ -832,18 +1002,18 @@ int dispatch(const void* x, const void* dt, const void* B, const void* C, const 
 // x (b,nc,Q,H,P) and y (b,nc*Q,H,P) in bf16 (is_f16 = 0) or fp16 (is_f16 =
 // 1); dt, la (b,nc,Q,H), B, C (b,nc,Q,N), D (H,) and h_last (b,H,N,P) fp32;
 // cb an fp32 scratch buffer of b*nc*nsub*QT*QT elements, nsub = ceil(Q /
-// 256) and QT = min(Q rounded up to 64, 256). All contiguous; B, C and cb
-// 16-byte aligned (TMA), x 8-byte aligned (cp.async). Q >= 1; N a multiple
-// of 4 up to 256; P a multiple of 4.
+// 256) and QT = min(Q rounded up to 64, 256); yp an fp32 scratch buffer of
+// nsl*b*nc*Q*H*P elements, nsl = ceil(N / 256), where N > 256 (else
+// unused, may be null). All contiguous; B, C and cb 16-byte aligned (TMA),
+// x 8-byte aligned (cp.async). Q >= 1; N a multiple of 4; P a multiple of 4.
 extern "C" int ssd_fwd_sm90(const void* x, const void* dt, const void* B, const void* C,
                             const void* la, const void* D, void* y, void* h_last, void* cb,
-                            int b, int nc, int Q, int H, int P, int N, int is_f16,
+                            void* yp, int b, int nc, int Q, int H, int P, int N, int is_f16,
                             void* stream) {
-  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N <= NMAX && N % 4 == 0 &&
-                  P >= 4 && P % 4 == 0;
+  const bool ok = b > 0 && nc > 0 && Q >= 1 && H > 0 && N >= 4 && N % 4 == 0 && P >= 4 &&
+                  P % 4 == 0 && (N <= NSLICE || yp != nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f16
-             ? dispatch<__half>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st)
-             : dispatch<__nv_bfloat16>(x, dt, B, C, la, D, y, h_last, cb, b, nc, Q, H, P, N, st);
+  if (is_f16) return dispatch<__half>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H, P, N, st);
+  return dispatch<__nv_bfloat16>(x, dt, B, C, la, D, y, h_last, cb, yp, b, nc, Q, H, P, N, st);
 }

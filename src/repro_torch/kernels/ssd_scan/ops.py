@@ -14,11 +14,14 @@ bf16) the scan is bound by bytes (~101 MB against ~16.3 GFLOP). See the
 notes at the heads of the sources.
 
 Both kernels take any chunk length Q (past 256 steps a chunk is walked as
-sub-chunks of 256, the state carried across them), any state N up to 256
-and any head dim P. The wrapper zero-pads B and C to a multiple of 4
-columns (TMA and the float4 loads need 16-byte rows; zero state columns
-are exact) and, for the 16-bit route, x to a multiple of 4 columns (its
-8-byte copies); h_last and y are sliced back. N over 256 raises.
+sub-chunks of 256, the state carried across them), any state N and any
+head dim P. Past ``N_SLICE`` states the state is cut into slices of that
+many rows, a block each; each slice's part of y goes to an fp32 scratch
+buffer the wrapper allocates, and a last kernel adds the parts in a fixed
+order. The wrapper zero-pads B and C to a multiple of 4 columns (TMA and
+the float4 loads need 16-byte rows; zero state columns are exact) and, for
+the 16-bit route, x to a multiple of 4 columns (its 8-byte copies); h_last
+and y are sliced back.
 
 A CPU tensor goes to the plain version (``ref.ssd_scan_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
@@ -40,7 +43,8 @@ from .ref import ssd_scan_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: x's dtype -> (source, C entry point, trailing int arguments before the
-#: stream; a route with any also takes a CB scratch buffer)
+#: stream; a route with any also takes a CB scratch buffer). Both take a
+#: scratch buffer for the slices' parts of y.
 ROUTES = {
     torch.bfloat16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (0,)),
     torch.float16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (1,)),
@@ -49,8 +53,8 @@ ROUTES = {
 #: every source the wrapper may launch, each built once
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
 X_DTYPES = tuple(ROUTES)
-#: steps of a sub-chunk, the widest state, the CB tiles' rows
-SUB_CHUNK, MAX_STATE, TILE = 256, 256, 64
+#: steps of a sub-chunk, the state rows of a slice, the CB tiles' rows
+SUB_CHUNK, N_SLICE, TILE = 256, 256, 64
 
 
 def route(dtype):
@@ -64,7 +68,7 @@ def route(dtype):
 def _entry(source, name, extra):
     fn = getattr(load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (9 if extra else 8)
+        fn.argtypes = ([ctypes.c_void_p] * (10 if extra else 9)
                        + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -114,9 +118,6 @@ def _forward(x, dt, B, C, la, D):
         raise ValueError("ssd_scan: inputs must be contiguous")
     if x.numel() == 0 or N == 0:
         raise ValueError("ssd_scan: empty input")
-    if N > MAX_STATE:
-        raise ValueError(f"ssd_scan: state {N} over {MAX_STATE} (ROADMAP.md, Queue 2, K2: "
-                         f"states over 256)")
     source, name, extra = route(x.dtype)
     # zero columns: a state column of zeros stays 0 and adds 0 to C.h; an x
     # column of zeros gives y and h columns of zeros; both are sliced off
@@ -136,11 +137,15 @@ def _forward(x, dt, B, C, la, D):
     nsub, qt = -(-Q // SUB_CHUNK), min(-(-Q // TILE) * TILE, SUB_CHUNK)
     cb = ([torch.empty((b * nc * nsub, qt, qt), dtype=torch.float32, device=x.device)]
           if extra else [])
+    # each slice's part of y, fp32, where N takes two or more slices
+    nsl = -(-Np // N_SLICE)
+    yp = (torch.empty((nsl, b, nc * Q, H, Pp), dtype=torch.float32, device=x.device)
+          if nsl > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), la.data_ptr(),
                  D.data_ptr(), y.data_ptr(), h_last.data_ptr(), *(t.data_ptr() for t in cb),
-                 b, nc, Q, H, Pp, Np, *extra, stream)
+                 None if yp is None else yp.data_ptr(), b, nc, Q, H, Pp, Np, *extra, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}")
     ssd_scan.launches += 1
@@ -184,6 +189,6 @@ def ssd_scan(x, dt, B, C, la, D):
 
 
 #: calls that reached a kernel since the count was last set to 0: one a call,
-#: though the 16-bit route launches two kernels (the CB pass, then the scan);
-#: CPU calls are not counted
+#: though the 16-bit route launches two kernels (the CB pass, then the scan)
+#: and N over 256 one more (the sum of the slices); CPU calls are not counted
 ssd_scan.launches = 0

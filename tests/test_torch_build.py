@@ -84,18 +84,18 @@ def test_sources_are_built_once_each():
     assert len(ops.SOURCES) == len(set(ops.SOURCES)) == 2
 
 
-@pytest.mark.parametrize("dtype,source,n_ptr", [(torch.bfloat16, "ssd_fwd_sm90.cu", 9),
-                                                (torch.float32, "ssd_fwd.cu", 8),
-                                                (torch.float16, "ssd_fwd_sm90.cu", 9)])
+@pytest.mark.parametrize("dtype,source,n_ptr", [(torch.bfloat16, "ssd_fwd_sm90.cu", 10),
+                                                (torch.float32, "ssd_fwd.cu", 9),
+                                                (torch.float16, "ssd_fwd_sm90.cu", 10)])
 def test_each_ssd_dtype_names_a_source_and_its_entry_point(dtype, source, n_ptr):
     src, name, extra = ssd_ops.route(dtype)
     assert src.name == source and src.exists() and src in ssd_ops.SOURCES
-    assert bool(extra) == (n_ptr == 9)     # the 16-bit route: a CB scratch, x's type
+    assert bool(extra) == (n_ptr == 10)    # the 16-bit route: a CB scratch, x's type
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
     assert sig, f"{src.name} has no C entry point {name}"
     args = [a.strip() for a in sig.group(1).split(",")]
-    # x, dt, B, C, la, D, y, h_last (+ the CB scratch); b, nc, Q, H, P, N;
-    # the route's extras; stream
+    # x, dt, B, C, la, D, y, h_last (+ the CB scratch), the scratch of the
+    # state slices' parts of y; b, nc, Q, H, P, N; the route's extras; stream
     assert len(args) == n_ptr + 6 + len(extra) + 1
     assert all("void*" in a for a in args[:n_ptr] + args[-1:])
     assert all(a.startswith("int ") for a in args[n_ptr:-1])

@@ -55,11 +55,13 @@ HD80_RAGGED_CASES = [
     (1, 100, 4, 2, 80, True, 16, 64, 64),
     (1, 129, 8, 1, 80, True, 0, 64, 64),
 ]
-# every other head dim up to 256, which the JAX kernel takes as it takes any:
-# 96 and 256 are built natively, the rest zero-padded by the wrapper to the
-# next width of ops.WIDTHS (8, 16, 20 -> 32; 48 -> 64; 112 -> 128; 160,
-# 192 -> 256); causal, bidirectional and windowed. S is a multiple of the
-# JAX block (interpret mode gives NaN on ragged tails)
+# every other head dim, which the JAX kernel takes as it takes any: 96 and
+# 256 are built natively, the rest up to 256 zero-padded by the wrapper to
+# the next width of ops.WIDTHS (8, 16, 20 -> 32; 48 -> 64; 112 -> 128; 160,
+# 192 -> 256); past 256 padded to a multiple of 64 and run in column passes
+# of at most 256 (264 -> 320 in 2 passes, 320 in 2, 512 in 2); causal,
+# bidirectional and windowed. S is a multiple of the JAX block (interpret
+# mode gives NaN on ragged tails)
 ANY_HD_CASES = [
     (1, 128, 4, 2, 8, True, 0, 64, 64),
     (1, 128, 4, 4, 16, False, 0, 64, 64),
@@ -70,6 +72,9 @@ ANY_HD_CASES = [
     (1, 128, 2, 1, 160, False, 0, 64, 64),
     (1, 128, 4, 2, 192, True, 0, 64, 64),
     (1, 256, 4, 2, 256, True, 100, 128, 128),
+    (1, 128, 4, 2, 264, True, 0, 64, 64),
+    (1, 128, 2, 1, 320, False, 0, 64, 64),
+    (1, 128, 4, 2, 512, True, 48, 64, 64),
 ]
 # f32: summation orders differ. bf16: P and the output are rounded to the
 # input type. fp16 has 3 more mantissa bits than bf16, so bf16's tolerance
@@ -146,18 +151,29 @@ def test_padding_equals_the_unpadded_plain_version(case):
         seen.append(q.shape[-1])
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     out = ops.run_padded(q, k, v, causal, win, plain)
-    assert seen == [ops.padded_width(hd)] and ops.padded_width(hd) in ops.WIDTHS
+    width, passes = ops.launch_plan(hd)
+    assert seen == [width]
+    assert width in ops.WIDTHS if hd <= 256 else width % ops.WIDE_STEP == 0 and passes > 1
     assert out.shape == (B, S, H, hd) and out.is_contiguous()
     want = attention_ref(q, k, v, causal=causal, window=win)
     np.testing.assert_allclose(f32(out), f32(want), atol=1e-6, rtol=1e-6)
 
 
-def test_every_head_dim_up_to_256_has_a_width_and_over_256_is_refused():
-    widths = [ops.padded_width(hd) for hd in range(1, 257)]
-    assert all(hd <= w and w in ops.WIDTHS for hd, w in zip(range(1, 257), widths))
+def test_every_head_dim_up_to_1024_has_a_launch_plan():
+    """Each head dim 1-1024 gets a width (a built one up to 256, past it a
+    multiple of 64 less than 64 above the head dim) and its column passes
+    (one up to 256, past it one a 256 output columns, the last ragged);
+    none raises."""
     assert {64, 80, 96, 128, 256} <= set(ops.WIDTHS)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ops.padded_width(257)
+    for hd in range(1, 1025):
+        width, passes = ops.launch_plan(hd)
+        assert hd <= width
+        if hd <= 256:
+            assert width in ops.WIDTHS and passes == 1
+        else:
+            assert width % 64 == 0 and width - hd < 64
+            assert passes == -(-width // 256) and 0 < width - 256 * (passes - 1) <= 256
+    assert ops.launch_plan(1024) == (1024, 4) and ops.launch_plan(264) == (320, 2)
 
 
 def test_cpu_calls_are_not_counted_as_launches():

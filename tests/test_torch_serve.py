@@ -41,11 +41,13 @@ def jax_params(jcfg):
 @pytest.mark.parametrize("arch,use_flash,window",
                          [(ARCH, f, w) for f, w in CASES]
                          + [("smollm-360m", False, 0), ("granite-20b", False, 0)]
+                         + [("smollm-360m", True, 0), ("granite-20b", True, 0)]
                          + [("qwen2-moe-a2.7b", f, 0) for f in (False, True)]
                          + [("mixtral-8x22b", f, 16) for f in (False, True)])
 def test_prefill_and_decode_match_jax(arch, use_flash, window):
-    """tinyllama in every route; smollm (tied embeddings, hd 20) and granite
-    (MQA) on the dense route; the MoE families (qwen2-moe: top-4 of 8 and
+    """tinyllama in every route; smollm (tied embeddings, hd 20, an odd
+    number of heads) and granite (MQA) in both routes, the flash one against
+    the JAX kernel in interpret mode; the MoE families (qwen2-moe: top-4 of 8 and
     shared experts; mixtral: top-2 of 4 under its window of 16) in both
     routes, decode dispatching the B new tokens together."""
     jcfg, tcfg = configs(use_flash, window, arch)

@@ -27,13 +27,16 @@ SMOKE_CASE = (4, 2, 8, 8, 16, 16)
 SLICE_CASE = (4, 4, 256, 80, 64, 128)
 # shapes past the serving ones, all of which the JAX kernel takes: chunks
 # over 256 steps (the CUDA kernels walk them as sub-chunks of 256), states
-# not a multiple of 4 (padded by the wrapper) or up to 256, head dims that
+# not a multiple of 4 (padded by the wrapper), up to 256 or past it (the
+# CUDA kernels cut 320 and 512 into slices of 256 states), head dims that
 # end in a ragged P-tile (20, 96) and P = 128
 LARGE_CASES = [
     (1, 2, 300, 2, 20, 6),
     (1, 1, 512, 2, 96, 256),
     (1, 2, 300, 2, 128, 256),
     (1, 1, 512, 3, 20, 6),
+    (1, 2, 64, 2, 16, 320),
+    (1, 2, 128, 2, 20, 512),
 ]
 # f32: the two sides sum in different orders; bf16: the reference's own
 # tolerance (tests/test_kernels.py), which also covers the one rounding by

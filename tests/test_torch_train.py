@@ -378,6 +378,35 @@ def test_loss_and_grads_match_jax(name, remat, jx):
     compare_grads({k: p.grad for k, p in tp.named_parameters()}, jg, name)
 
 
+# The shapes past 256 at model level, kernels on: the smoke tinyllama at head
+# dim 320 (K1 at a width of 320 in two column passes on the card) and the
+# smoke mamba2 at state 320 (K2 in two slices of the state on the card). On
+# the CPU the port's wrappers run their plain versions and the JAX package
+# its Pallas kernels in interpret mode. fp32 logits: LOGITS_TOL, as the
+# serving tests hold them (summation orders differ between XLA and torch)
+WIDE_CONFIGS = {"tinyllama-hd320": ("tinyllama-1.1b", {"head_dim": 320, "use_flash": True}),
+                "mamba2-state320": ("mamba2-2.7b", {"ssm_state": 320, "use_ssd_kernel": True})}
+LOGITS_TOL = 1e-4
+
+
+@pytest.mark.parametrize("name", list(WIDE_CONFIGS))
+def test_wide_shapes_loss_and_prefill_match_jax(name, jx):
+    from repro_torch.convert import from_jax
+    arch, kw = WIDE_CONFIGS[name]
+    jcfg = jx.smoke(arch).replace(dtype=jx.jnp.float32, **kw)
+    tcfg = get_smoke_config(arch).replace(dtype=torch.float32, **kw)
+    jp = jx.Model(jcfg).init(jx.jax.random.PRNGKey(0))[0]
+    tp = from_jax(tcfg, jp, device="cpu")
+    b = batch_of(jcfg.vocab_size, 2, 32, 8)
+    jl = float(jx.Model(jcfg).loss(jp, {k: jx.jnp.asarray(v) for k, v in b.items()}))
+    jlog, _ = jx.Model(jcfg).prefill(jp, {"tokens": jx.jnp.asarray(b["tokens"])}, 32)
+    with torch.no_grad():
+        tl = Model(tcfg).loss(tp, torch_batch(b)).item()
+        tlog, _ = Model(tcfg).prefill(tp, {"tokens": torch.from_numpy(b["tokens"])}, 32)
+    assert abs(tl - jl) <= LOSS_TOL, (tl, jl)
+    np.testing.assert_allclose(f32(tlog), np.asarray(jlog), atol=LOGITS_TOL, rtol=LOGITS_TOL)
+
+
 # ------------------------------------------------------------- train step
 @pytest.mark.parametrize("name", ["preset-5m", "tinyllama-smoke", "zamba2-smoke",
                                   "qwen2-moe-smoke"])
