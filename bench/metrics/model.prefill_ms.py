@@ -1,0 +1,8 @@
+"""Median prefill of a wave in the window, timed on the host from the call
+to its first tokens read back (a device sync)."""
+from bench.lib.stats import median
+
+
+def read(run):
+    spans = run.spans.of("serve.prefill")
+    return median([s["t1"] - s["t0"] for s in spans]) * 1e3 if spans else None
