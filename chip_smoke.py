@@ -868,48 +868,18 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
     tokens/s, peak memory, and per save the time ``save`` held the loop, the
     part of it spent copying to the host, the seconds from its start to the
     manifest's commit, the time ``wait`` held the loop at the end, and the
-    overlap: the share of save-to-commit the loop spent elsewhere."""
+    overlap: the share of save-to-commit the loop spent elsewhere. The save's
+    times are the port's own spans (``ckpt.save``, ``ckpt.to_host``,
+    ``ckpt.wait``), read from the run's trace: the run's runtime is traced
+    through ``repro_torch.obs.FORCE``."""
+    from repro_torch import obs
     log = ROOT / "build" / "chip_smoke" / f"train_{name}.jsonl"
     log.parent.mkdir(parents=True, exist_ok=True)
     log.unlink(missing_ok=True)
-    saves = []
-    manager_mod = sys.modules[train_mod.CheckpointManager.__module__]
-    to_host = manager_mod.to_host
-    host_s = [0.0]
-
-    def timed_to_host(leaf):
-        t0 = time.monotonic()
-        out = to_host(leaf)
-        host_s[0] += time.monotonic() - t0
-        return out
-
-    class Timed(train_mod.CheckpointManager):
-        def save(self, step, tree, sync=False):
-            host_s[0] = 0.0
-            t0 = time.monotonic()
-            ok = super().save(step, tree, sync=sync)
-            sv = {"step": step, "saved": ok, "save_call_s": time.monotonic() - t0,
-                  "host_copy_s": host_s[0], "wait_s": 0.0}
-            if ok and self._in_flight is not None:     # async: the commit's future
-                sv["manifest"] = self._in_flight[1]    # resolves to the manifest
-            elif ok:
-                sv["manifest"] = json.loads(
-                    (self.dir / f"step_{step:08d}" / "MANIFEST.json").read_text())
-            saves.append(sv)
-            return ok
-
-        def wait(self):
-            step = self._in_flight[0] if self._in_flight else None
-            t0 = time.monotonic()
-            super().wait()
-            for sv in saves:
-                if sv["step"] == step and sv["saved"]:
-                    sv["wait_s"] = time.monotonic() - t0
-
-    train_mod.CheckpointManager = Timed
-    manager_mod.to_host = timed_to_host
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    n_runs = len(obs.RUNS)
+    obs.FORCE = True
     try:
         for k in kernels:
             k["counter"].launches = 0
@@ -917,16 +887,18 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
         torch.cuda.synchronize()
         launches = counts(kernels)
     finally:
-        train_mod.CheckpointManager = Timed.__mro__[1]
-        manager_mod.to_host = to_host
+        obs.FORCE = False
+    (_, rt), = obs.RUNS[n_runs:]
+    del obs.RUNS[n_runs:]
+    saves = save_spans(rt.trace().events)
     rows = [json.loads(line) for line in log.read_text().splitlines()]
     steps = [r["t"] - p["t"] for p, r in zip(rows, rows[1:])]
     step_s = statistics.median(steps) if steps else rows[0]["t"]
     for sv in saves:
         if not sv["saved"]:       # skipped: the previous save was in flight
             continue
-        manifest = sv.pop("manifest")
-        manifest = manifest if isinstance(manifest, dict) else manifest.value()
+        manifest = json.loads((Path(kw["ckpt_dir"]) / f"step_{sv['step']:08d}" /
+                               "MANIFEST.json").read_text())
         # save_seconds runs from after the host copy to the commit
         # (async: the host copy in the call, then the writes in the
         # background; sync: all of it in the call)
@@ -1022,6 +994,27 @@ def train_dense(torch, train_mod, CheckpointManager, cfg, kernels):
     shutil.rmtree(ck_root)
     torch.cuda.empty_cache()
     return io_launches, nums
+
+
+def save_spans(events):
+    """Per ``ckpt.save`` span of a traced run, in order: its step, whether it
+    saved (False: skipped, the previous save in flight), the seconds it held
+    the loop, the seconds of its ``ckpt.to_host`` spans, and the seconds of
+    the last ``ckpt.wait`` span for its step (0 if none)."""
+    spans = sorted((e for e in events if e["type"] == "span" and e["cat"] == "ckpt"),
+                   key=lambda e: e["t"])
+    saves = []
+    for sp in spans:
+        a = sp["args"]
+        if sp["name"] != "ckpt.save":
+            continue
+        waits = [w["dur"] for w in spans
+                 if w["name"] == "ckpt.wait" and w["args"]["step"] == a["step"]]
+        saves.append({"step": a["step"], "saved": a["saved"], "save_call_s": sp["dur"],
+                      "host_copy_s": sum(c["dur"] for c in spans if c["name"] == "ckpt.to_host"
+                                         and c["args"]["parent"] == a["id"]),
+                      "wait_s": waits[-1] if waits and a["saved"] else 0.0})
+    return saves
 
 
 def _leaves(tree):

@@ -44,6 +44,7 @@ from ..convert import LayerStack
 from ..core import constraint, current_runtime, io, task
 from ..core.runtime import copy_fsync
 from ..distributed.sharding import Sharding, place_tensor
+from ..spans import span
 from .serializer import (flatten_with_paths, plan_shards, read_shard, to_host,
                          unflatten_like, write_shard)
 
@@ -51,6 +52,14 @@ from .serializer import (flatten_with_paths, plan_shards, read_shard, to_host,
 def _is_sharded(leaves) -> bool:
     return any(isinstance(t, DTensor)
                for _, v in leaves for t in (v if isinstance(v, LayerStack) else [v]))
+
+
+def _host_copy(leaves) -> list:
+    """``(key, to_host(leaf))`` of every leaf, as one ``ckpt.to_host`` span."""
+    with span("ckpt.to_host") as sp:
+        out = [(k, to_host(v)) for k, v in leaves]
+        sp["bytes"] = sum(t.nbytes for _, t in out)
+    return out
 
 
 def _rank() -> int:
@@ -171,12 +180,17 @@ class CheckpointManager:
         writes inline. Returns False if skipped due to an in-flight save.
         Every leaf is copied to the host before ``save`` returns, so the
         caller may update its tensors in place at once."""
+        with span("ckpt.save", step=step) as sp:
+            sp["saved"] = self._save(step, tree, sync)
+        return sp["saved"]
+
+    def _save(self, step: int, tree, sync: bool) -> bool:
         rt = current_runtime()
         leaves = flatten_with_paths(tree)
         sharded = _is_sharded(leaves)
         if sharded:
             self.wait()                 # the previous sharded save, on every rank
-            host_leaves = [(k, to_host(v)) for k, v in leaves]
+            host_leaves = _host_copy(leaves)
             if _rank() != 0:
                 self._barrier_pending = True
                 if rt is None or sync:
@@ -191,7 +205,7 @@ class CheckpointManager:
             self._in_flight = None
 
         if not sharded:
-            host_leaves = [(k, to_host(v)) for k, v in leaves]
+            host_leaves = _host_copy(leaves)
         step_dir = self.dir / f"step_{step:08d}"
         step_dir.mkdir(parents=True, exist_ok=True)
         plan = plan_shards(host_leaves, self.n_shards)
@@ -252,6 +266,10 @@ class CheckpointManager:
         return True
 
     def wait(self):
+        with span("ckpt.wait", step=self._in_flight[0] if self._in_flight else None):
+            self._wait()
+
+    def _wait(self):
         rt = current_runtime()
         if self._in_flight is not None and rt is not None:
             step = self._in_flight[0]

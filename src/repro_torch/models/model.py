@@ -13,6 +13,7 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed import shard_activation
 from ..distributed.sharding import assign, place_state
+from ..spans import span
 from .attention import KV_CACHE_AXES
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
@@ -217,6 +218,7 @@ class Model:
         return transformer_prefill(params, self.cfg, batch, cache_len)
 
     @torch.no_grad()
+    @span("model.decode")
     def decode_step(self, params, state, tokens):
         f = self.cfg.family
         if f == "ssm":

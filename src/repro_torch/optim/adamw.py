@@ -26,6 +26,8 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..spans import span
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -95,6 +97,7 @@ def _local(p, g, m, v):
 
 
 @torch.no_grad()
+@span("optim.adamw")
 def adamw_update(grads: dict, params: dict, state: AdamWState, cfg: AdamWConfig):
     """One step. Returns (params, new state, gnorm) as the reference does,
     but the parameters and the moments are updated in place: a functional
