@@ -19,7 +19,12 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      alone, for the SSD scan also with L2 flushed before each call, and its
      host time a call), the plain version's, a PyTorch library call's where
      one computes the same function (a yardstick only) and its bound (the
-     least time the card could take for the same work);
+     least time the card could take for the same work); then K1's backward
+     kernel (bf16 and fp16) against ``attention_bwd_ref`` (fp32, from the
+     kernel's own output and log-sum-exp) at the test cases, and at the
+     train shapes of smollm-360m and tinyllama-1.1b (bf16) also against the
+     plain recompute, timed (device ms) beside the plain recompute's ms
+     and its bound;
   4. full-width fp32 prefills on the same seeded weights and inputs, the
      kernels against the plain paths: tinyllama-1.1b (flash), mamba2-2.7b
      (SSD), zamba2-1.2b (full depth, both), qwen2-moe-a2.7b (depth cut 24
@@ -196,6 +201,28 @@ FLASH_DTYPES = ("float32", "bfloat16", "float16")
 # bf16's ~0.016): its tolerance lies between the two, so that a route which
 # rounded anything to bf16 would fail it
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
+# K1's backward kernel: every width it takes (32, 48 padded to 64, 64, 80,
+# 96, 128), every mask (causal, bidirectional, a window), G = 1, 3, 4, 8 and
+# MQA, S a multiple of the 64-row tile and not (100, 129, 200, 300); then
+# the train shapes it is timed at: smollm-360m's benchmark cell (8 x 2048
+# tokens, 15 heads on 5) and tinyllama-1.1b's phase-7 step (4 x 1024)
+BWD_CASES = [
+    (1, 128, 4, 4, 64, True, 0),
+    (2, 192, 6, 2, 32, True, 0),
+    (1, 256, 8, 1, 128, False, 0),
+    (1, 200, 3, 1, 80, True, 50),
+    (2, 100, 4, 2, 96, False, 30),
+    (1, 129, 8, 1, 64, True, 0),
+    (1, 300, 15, 5, 48, True, 0),
+]
+BWD_TRAIN_CASES = {"smollm-360m": (8, 2048, 15, 5, 64, True, 0),
+                   "tinyllama-1.1b": (4, 1024, 32, 4, 64, True, 0)}
+# the backward kernel's gradients against attention_bwd_ref in fp32 on the
+# same inputs, output and log-sum-exp: P and dS are rounded to the input type
+# for their products and each gradient once more on output, so max |err|
+# is held to this share of the gradient's largest |value| (fp16's rounding
+# 8x finer, as in TOL)
+BWD_TOL = {"bfloat16": 2e-2, "float16": 5e-3}
 # (b, nc, Q, H, P, N): tests/test_torch_ssd.py's cases (the reference's
 # SSD_CASES and the mamba2 smoke config's shape), then the shape of one
 # serving prefill of mamba2-2.7b (batch 4, 1024 tokens in chunks of 256)
@@ -249,8 +276,9 @@ MOE_RTOL = 1e-5
 # kernel runs at the shape phase 3 times
 TRAIN = dict(batch=4, seq=1024)
 # fp32, kernel vs plain path: the forwards differ by summation order (~1e-7
-# relative), the backwards are the same recompute of the plain version, so
-# every gradient leaf agrees within 1e-3 of its largest |g|
+# relative), the backwards are the same recompute of the plain version (K1's
+# backward kernel takes 16-bit calls only), so every gradient leaf agrees
+# within 1e-3 of its largest |g|
 GRAD_RTOL = 1e-3
 # phase 12: K1 at the head dims of tests/test_torch_flash.py's ANY_HD_CASES,
 # (B, S, H, KV) below, causal and bidirectional, in every dtype route
@@ -491,6 +519,124 @@ def check_flash_masked(torch, ops, dtype):
     print(f"[flash] window=1 {dtype}: every row is exactly its own value row")
 
 
+def flash_bwd_bound(torch, case, dtype):
+    """(ms, "bytes" | "operations"): the larger of the traffic (q, k, v, o
+    and dO read once, dq, dk and dv written once) over the memory rate and
+    the work of the valid (q, k) pairs (five products of 2*hd FLOPs each:
+    S, dP, dV, dK, dQ) over the peak rate for the input type."""
+    B, S, H, KV, hd, causal, window = case
+    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    mask = (kp <= qp) if causal else torch.ones((S, S), dtype=torch.bool)
+    if window:
+        mask = mask & (kp > qp - window)
+    flops = 10 * hd * int(mask.sum()) * B * H
+    nbytes = B * S * (3 * H + 2 * KV + H + 2 * KV) * hd * 2
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_flash_bwd(torch, ops, refs, case, dtype, seed=0, timed=False, reps=10):
+    """K1's backward kernel through autograd (one ``bwd_launches``) against
+    ``attention_bwd_ref`` in fp32 from the kernel's own output and
+    log-sum-exp, and the log-sum-exp against ``attention_lse_ref``; with
+    ``timed``, also against the plain recompute (autograd of
+    ``attention_ref`` on the same inputs, at ``BWD_TOL``) and the numbers:
+    the kernel's device ms, the plain recompute's ms, PyTorch's own
+    attention backward's ms (``library_ms``), the bound."""
+    attention_ref, attention_lse_ref, attention_bwd_ref = refs
+    B, S, H, KV, hd, causal, window = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=g, device="cuda").to(dt)
+                   for n in (H, KV, KV, H))
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    n0 = ops.flash_attention.bwd_launches
+    out = ops.flash_attention(*qkv, causal, window)
+    got = torch.autograd.grad(out, qkv, do)
+    torch.cuda.synchronize()
+    if ops.flash_attention.bwd_launches != n0 + 1:
+        raise AssertionError(f"flash bwd {case} {dtype}: the backward kernel did not run")
+    o, lse = ops._forward(q, k, v, causal, window, with_lse=True)
+    lse_err = (lse - attention_lse_ref(q, k, causal=causal, window=window)).abs().max().item()
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+
+    def share(a, w):
+        a, w = a.float(), w.float()
+        return ((a - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = share(a, w)
+        if not torch.isfinite(a).all() or errs[name] > BWD_TOL[dtype]:
+            raise AssertionError(f"flash bwd {case} {dtype}: {name} max |err| "
+                                 f"{errs[name]:.3g} of max |ref| (tolerance {BWD_TOL[dtype]})")
+    if lse_err > 1e-3:
+        raise AssertionError(f"flash bwd {case} {dtype}: lse max |err| {lse_err:.3g}")
+    del want
+    row = {"max_err_share": errs, "lse_max_abs_err": lse_err}
+    if timed:
+        # the plain recompute: its own distance from the fp32 reference (the
+        # scale of what 16 bits cost there), and the kernel held against it
+        with torch.enable_grad():
+            ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+            plain = torch.autograd.grad(attention_ref(*ref_in, causal=causal, window=window),
+                                        ref_in, do)
+        want = attention_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window)
+        row["plain_err_share"] = {name: share(a, w)
+                                  for name, a, w in zip(("dq", "dk", "dv"), plain, want)}
+        row["vs_plain_share"] = {name: share(a, w)
+                                 for name, a, w in zip(("dq", "dk", "dv"), got, plain)}
+        del want, plain
+        if max(row["vs_plain_share"].values()) > BWD_TOL[dtype]:
+            raise AssertionError(f"flash bwd {case} {dtype}: against the plain recompute "
+                                 f"{row['vs_plain_share']} (tolerance {BWD_TOL[dtype]})")
+        width = ops.launch_plan(hd)[0]
+        kern = lambda: ops.run_padded(ops._launch_bwd, (q, k, v, o, do), lse, causal, window)
+
+        def recompute():
+            with torch.enable_grad():
+                ref_in = [t.detach().requires_grad_() for t in (q, k, v)]
+                torch.autograd.grad(attention_ref(*ref_in, causal=causal, window=window),
+                                    ref_in, do)
+        # PyTorch's own attention backward, a yardstick the port never calls:
+        # autograd of scaled_dot_product_attention, its forward run once
+        lib_in = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            qt, kt, vt = (t.transpose(1, 2) for t in lib_in)
+            if window:
+                qp = torch.arange(S, device="cuda")[:, None]
+                kp = torch.arange(S, device="cuda")[None, :]
+                m = ((kp <= qp) if causal else torch.ones_like(kp <= qp)) & (kp > qp - window)
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=m, enable_gqa=True)
+            else:
+                lib_out = torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+        lib = lambda: torch.autograd.grad(lib_out, lib_in, do.transpose(1, 2),
+                                          retain_graph=True)
+        bound_ms, bound_by = flash_bwd_bound(torch, case, dtype)
+        row.update(kernel=timings(torch, kern, reps), plain_ms=cuda_ms(torch, recompute, 5),
+                   library_ms=cuda_ms(torch, lib, reps), bound_ms=bound_ms,
+                   bound_by=bound_by, width=width)
+        del lib_out, lib_in
+        row["bound_share_by_device"] = bound_ms / row["kernel"]["device_ms"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[flash bwd] B,S,H,KV,hd,causal,window={case} {dtype}: max|err| of max|ref| "
+          + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()) + f" (tol {BWD_TOL[dtype]}), "
+          f"lse max|err| {lse_err:.3g}"
+          + (f"; plain recompute's " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                                 row["plain_err_share"].items())
+             + "; against it " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                           row["vs_plain_share"].items())
+             + f"; kernel {row['kernel']['ms']:.4f} ms (device "
+             f"{row['kernel']['device_ms']:.4f}, host {row['kernel']['host_ms']:.4f}), plain "
+             f"recompute {row['plain_ms']:.4f} ms, SDPA backward {row['library_ms']:.4f} ms, "
+             f"bound {row['bound_ms']:.4f} ms "
+             f"({row['bound_by']}), {100 * row['bound_share_by_device']:.1f}% of bound by "
+             f"device time" if timed else ""), flush=True)
+    return row
+
+
 def l2_flushed_ms(torch, fn):
     """``fn``'s device time with L2 emptied before each call: 128 MB (over
     twice the H100's 50 MB L2) written ahead of the start event."""
@@ -563,6 +709,25 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
 
 def counts(kernels):
     return {k["name"]: k["counter"].launches for k in kernels}
+
+
+#: K1's backward kernel in the launch counts and the kernels line
+K1_BWD = "flash_attention_bwd"
+
+
+def zero(kernels):
+    """Every launch count of ``kernels`` set to 0, K1's backward's too."""
+    for k in kernels:
+        k["counter"].launches = 0
+        if hasattr(k["counter"], "bwd_launches"):
+            k["counter"].bwd_launches = 0
+
+
+def bwd_counts(kernels):
+    """K1's backward kernel calls since ``zero``: {K1_BWD: calls}, empty if
+    no kernel of ``kernels`` has a backward kernel."""
+    return {K1_BWD: k["counter"].bwd_launches for k in kernels
+            if hasattr(k["counter"], "bwd_launches")}
 
 
 def make_batch(torch, np, cfg, B, S, seed=0):
@@ -724,8 +889,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
-        for k in kernels:
-            k["counter"].launches = 0
+        zero(kernels)
         out = serve_mod.serve(cfg, trace_path=str(trace), device="cuda", **kw)
         torch.cuda.synchronize()
         launches = counts(kernels)
@@ -764,8 +928,7 @@ def vlm_path(torch, np, Model, cfg, kernels):
     batch = make_batch(torch, np, cfg, B, S)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k["counter"].launches = 0
+    zero(kernels)
     t0 = time.monotonic()
     logits, state = model.prefill(params, batch, cfg.vision_seq + S + new)
     nxt = logits[:, :cfg.vocab_size].argmax(-1)
@@ -863,7 +1026,8 @@ def ckpt_bytes(cfg):
 def train_run(torch, train_mod, cfg, kernels, name, **kw):
     """One run of ``train`` with every launch count set to 0 just before and
     read just after; checks finite losses and gnorms. Returns the result,
-    the launches and its numbers: step time (median of the steps after the
+    the forward launches and its numbers (K1's backward kernel calls
+    among them): step time (median of the steps after the
     first, from the log's clock, which each step's loss and gnorm sync),
     tokens/s, peak memory, and per save the time ``save`` held the loop, the
     part of it spent copying to the host, the seconds from its start to the
@@ -881,11 +1045,10 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
     n_runs = len(obs.RUNS)
     obs.FORCE = True
     try:
-        for k in kernels:
-            k["counter"].launches = 0
+        zero(kernels)
         out = train_mod.train(cfg, log_path=str(log), device="cuda", **TRAIN, **kw)
         torch.cuda.synchronize()
-        launches = counts(kernels)
+        launches, bwd = counts(kernels), bwd_counts(kernels)
     finally:
         obs.FORCE = False
     (_, rt), = obs.RUNS[n_runs:]
@@ -915,13 +1078,14 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
            "first_step_s": rows[0]["t"], "steps_s": steps,
            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
            "wall_s": out["wall_s"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "saves": saves, "launches": launches, "runtime_stats": out["runtime_stats"]}
+           "saves": saves, "launches": launches, "bwd_launches": bwd,
+           "runtime_stats": out["runtime_stats"]}
     print(f"[train] {cfg.name} {name}: {out['steps_run']} steps, losses "
           f"{[round(x, 4) for x in out['losses']]}, gnorms "
           f"{[round(g, 4) for g in num['gnorms']]}, step {step_s:.4f} s (median of "
           f"{[round(x, 4) for x in steps]}; first {rows[0]['t']:.3f} s), "
           f"{num['tokens_per_s']:.1f} tok/s, wall {out['wall_s']:.3f} s, peak "
-          f"{num['peak_gib']:.3f} GiB, launches {launches}, saves {saves}, "
+          f"{num['peak_gib']:.3f} GiB, launches {launches}, backward {bwd}, saves {saves}, "
           f"runtime {out['runtime_stats']}")
     if not all(map(math.isfinite, out["losses"] + num["gnorms"])):
         raise AssertionError(f"{cfg.name} {name}: a loss or gnorm is not finite")
@@ -944,17 +1108,22 @@ def train_dense(torch, train_mod, CheckpointManager, cfg, kernels):
     per_step = cfg.n_layers * 2        # the forward, and its re-run under remat
     nums = {"checkpoint_gb": need / 1e9, "disk_free_gb": free / 1e9}
 
-    def expect(launches, steps, what):
+    def expect(num, steps, what):
         want = {k["name"]: steps * per_step if k["name"] == "flash_attention_fwd" else 0
                 for k in kernels}
-        if launches != want:
-            raise AssertionError(f"{cfg.name} {what} launched {launches}, expected {want}")
+        if num["launches"] != want:
+            raise AssertionError(f"{cfg.name} {what} launched {num['launches']}, expected "
+                                 f"{want}")
+        # one backward kernel call a layer a step (bf16, head dim 64)
+        if num["bwd_launches"] != {K1_BWD: steps * cfg.n_layers}:
+            raise AssertionError(f"{cfg.name} {what}: backward kernel {num['bwd_launches']}, "
+                                 f"expected {steps * cfg.n_layers}")
 
     d = ck_root / "io_aware"
     out, io_launches, nums["io_aware"] = train_run(
         torch, train_mod, cfg, kernels, "io_aware", steps=4, ckpt_dir=str(d), ckpt_every=4,
         io_aware=True, resume=False)
-    expect(io_launches, 4, "the I/O-aware run")
+    expect(nums["io_aware"], 4, "the I/O-aware run")
     if CheckpointManager(d).steps() != [3]:
         raise AssertionError(f"checkpoint steps {CheckpointManager(d).steps()}, expected [3]")
     # the restore, bit for bit, against the state the run ended with (= saved)
@@ -974,20 +1143,20 @@ def train_dense(torch, train_mod, CheckpointManager, cfg, kernels):
     del out, like, sd, opt
     torch.cuda.empty_cache()
 
-    out, launches, nums["resume"] = train_run(
+    out, _, nums["resume"] = train_run(
         torch, train_mod, cfg, kernels, "resume", steps=6, ckpt_dir=str(d), ckpt_every=4,
         io_aware=True, resume=True)
     if out["steps_run"] != 2:
         raise AssertionError(f"the resume ran {out['steps_run']} steps, expected 2")
-    expect(launches, 2, "the resume")
+    expect(nums["resume"], 2, "the resume")
     del out
     shutil.rmtree(d)
 
     d = ck_root / "baseline"
-    out, launches, nums["baseline"] = train_run(
+    out, _, nums["baseline"] = train_run(
         torch, train_mod, cfg, kernels, "baseline", steps=4, ckpt_dir=str(d), ckpt_every=4,
         io_aware=False, resume=False)
-    expect(launches, 4, "the baseline")
+    expect(nums["baseline"], 4, "the baseline")
     if not (d / "step_00000003" / "MANIFEST.json").exists():
         raise AssertionError("the baseline wrote no step_00000003")
     del out
@@ -1055,8 +1224,7 @@ def encoder_train(torch, np, train_mod, Model, cfg, kernels, steps=2):
     opt_state = adamw_init(params.state_dict())
     opt = AdamWConfig(total_steps=steps, warmup_steps=1)
     rng = np.random.default_rng(0)
-    for k in kernels:
-        k["counter"].launches = 0
+    zero(kernels)
     times, losses, gnorms = [], [], []
     for _ in range(steps):
         b = {"embeds": rng.standard_normal((B, S, cfg.d_model), dtype=np.float32),
@@ -1066,15 +1234,16 @@ def encoder_train(torch, np, train_mod, Model, cfg, kernels, steps=2):
         losses.append(loss.item())
         gnorms.append(gnorm.item())
         times.append(time.monotonic() - t0)
-    launches = counts(kernels)
+    launches, bwd = counts(kernels), bwd_counts(kernels)
     num = {"losses": losses, "gnorms": gnorms, "steps_s": times, "step_s": times[-1],
            "tokens_per_s": B * S / times[-1],
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches}
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "bwd_launches": bwd}
     print(f"[train] {cfg.name} encoder ({cfg.n_layers} layers): {steps} steps of "
           f"train_step on {B} x {S} frame embeddings, losses {[round(x, 4) for x in losses]}, "
           f"gnorms {[round(g, 4) for g in gnorms]}, step {times[-1]:.4f} s (first "
           f"{times[0]:.3f} s), {num['tokens_per_s']:.1f} tok/s, peak {num['peak_gib']:.3f} "
-          f"GiB, launches {launches}")
+          f"GiB, launches {launches}, backward {bwd}")
     if not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"{cfg.name}: a loss or gnorm is not finite")
     del params, opt_state
@@ -1151,8 +1320,7 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
         opt_state = adamw_init(dict(params.named_parameters()))
         times, losses, gnorms = [], [], []
         for i, b in enumerate(batches):
-            for k in kernels:
-                k["counter"].launches = 0
+            zero(kernels)
             torch.cuda.synchronize()
             t0 = time.monotonic()
             with ctx():
@@ -1162,7 +1330,7 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
             losses.append(float(full(loss)))
             gnorms.append(float(gnorm))
             if i == 0:
-                launches = counts(kernels)
+                launches, bwd = counts(kernels), bwd_counts(kernels)
                 after = {k: full(p.detach()) for k, p in params.named_parameters()}
                 if name == "unsharded":
                     first["after"] = {k: t.clone() for k, t in after.items()}
@@ -1186,7 +1354,7 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
         runs[name] = {"losses": losses, "gnorms": gnorms, "steps_s": times,
                       "later_step_s": statistics.median(times[1:]),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                      "launches": launches}
+                      "launches": launches, "bwd_launches": bwd}
         del params, opt_state
     sh, un = runs[strategy], runs["unsharded"]
     if not max(first["update_norm"].values()) > 0:
@@ -1204,16 +1372,18 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
           f"later steps {sh['later_step_s']:.4f} s vs {un['later_step_s']:.4f} s "
           f"({sh['later_step_s'] / un['later_step_s']:.3f}x), first {sh['steps_s'][0]:.3f} s "
           f"vs {un['steps_s'][0]:.3f} s; peak {sh['peak_gib']:.3f} vs {un['peak_gib']:.3f} "
-          f"GiB; launches {sh['launches']} vs {un['launches']}")
+          f"GiB; launches {sh['launches']} vs {un['launches']}, backward "
+          f"{sh['bwd_launches']} vs {un['bwd_launches']}")
     if not (d_loss[0] <= DIST_FIRST_RTOL and d_gnorm[0] <= DIST_FIRST_RTOL
             and param_diff <= DIST_PARAM_ATOL and update_err[worst] <= DIST_UPDATE_RTOL
             and max(d_loss[1:]) <= DIST_LATER_LOSS_RTOL
             and max(d_gnorm[1:]) <= DIST_LATER_GNORM_RTOL):
         raise AssertionError(f"{cfg.name} {strategy}: the sharded steps disagree with the "
                              f"unsharded ones")
-    if sh["launches"] != un["launches"]:
-        raise AssertionError(f"{cfg.name} {strategy}: launches {sh['launches']} vs "
-                             f"{un['launches']} unsharded")
+    if (sh["launches"], sh["bwd_launches"]) != (un["launches"], un["bwd_launches"]):
+        raise AssertionError(f"{cfg.name} {strategy}: launches {sh['launches']}, backward "
+                             f"{sh['bwd_launches']} vs {un['launches']}, "
+                             f"{un['bwd_launches']} unsharded")
     return {"strategy": strategy, "sharded": sh, "unsharded": un, "loss_rel_diff": d_loss,
             "gnorm_rel_diff": d_gnorm, "max_param_diff": param_diff,
             "max_update_rel_diff": [worst, update_err[worst]]}, first.get("grads")
@@ -1430,8 +1600,7 @@ def prefill_16(torch, np, Model, cfg, kernels, flag, want, limit):
 
     def run(c):
         return Model(c).prefill(params, batch, S)[0].float()
-    for k in kernels:
-        k["counter"].launches = 0
+    zero(kernels)
     lk = run(cfg.replace(**{flag: True}))
     torch.cuda.synchronize()
     launches = counts(kernels)
@@ -1612,6 +1781,9 @@ def wide_phase(torch, np, Model, serve_mod, train_mod, get_config, ops, attentio
                                           {K1: (2 if cfg.remat else 1) * cfg.n_layers, K2: 0})
         if len(seen) != 2 or not torch.stack(seen).all():
             raise AssertionError(f"{name}: {len(seen)} updates, a gradient not finite")
+        if nums[name]["bwd_launches"] != {K1_BWD: 2 * cfg.n_layers}:
+            raise AssertionError(f"{name}: backward kernel {nums[name]['bwd_launches']}, "
+                                 f"expected {2 * cfg.n_layers}")
         print(f"[wide] {name}: every parameter had a finite gradient in both steps")
         launches[name] = got
 
@@ -1651,7 +1823,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import attention_ref, ops
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref, ops)
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref
     from repro_torch.checkpoint import CheckpointManager
@@ -1689,6 +1862,14 @@ def main() -> int:
             check_flash(torch, ops, attention_ref, case, dtype)
     for dtype in ("bfloat16", "float16"):
         check_flash_masked(torch, ops, dtype)
+    # the backward kernel: the test cases, then timed at the train shapes
+    bwd_refs = (attention_ref, attention_lse_ref, attention_bwd_ref)
+    for case in BWD_CASES:
+        for dtype in ("bfloat16", "float16"):
+            check_flash_bwd(torch, ops, bwd_refs, case, dtype)
+    bwd_rows = {arch: {"case": case, **check_flash_bwd(torch, ops, bwd_refs, case, "bfloat16",
+                                                       timed=True)}
+                for arch, case in BWD_TRAIN_CASES.items()}
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float32", timed=True)
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float16", timed=True)
     # each kernel's numbers at the main paths' shapes, for the kernels line
@@ -1839,10 +2020,19 @@ def main() -> int:
         torch, np, Model, serve_mod, train_mod, get_config, ops, attention_ref, ssd_ops,
         ssd_scan_ref, ssd_scan_tf32_ref, kernels)
 
-    # 14. train numbers, kernel numbers, then the result line
+    # 14. train numbers, kernel numbers, then the result line; K1's backward
+    # kernel calls on each path that trains in 16 bits
+    bwd_train = {f"{dense.name} {run}": train_nums[dense.name][run]["bwd_launches"][K1_BWD]
+                 for run in ("io_aware", "resume", "baseline")}
+    bwd_train.update({name: train_nums[name]["bwd_launches"][K1_BWD]
+                      for name in (ssm.name, hybrid.name, moe.name, hubert.name)})
+    bwd_train.update({f"{arch} sharded step 1": dist_nums[arch]["sharded"]["bwd_launches"][K1_BWD]
+                      for arch in ("tinyllama-1.1b", "zamba2-1.2b")})
+    bwd_train.update({name: n["bwd_launches"][K1_BWD] for name, n in wide_nums.items()
+                      if "bwd_launches" in n})
     print(json.dumps({"train": train_nums, "families": family_nums,
                       "distributed": dist_nums, "dryrun": dryrun_nums,
-                      "shapes": shape_nums, "wide": wide_nums}))
+                      "shapes": shape_nums, "wide": wide_nums, "flash_bwd": bwd_rows}))
     print(json.dumps({"kernels": [
         {"name": k["name"], "route": k["route"],
          "source": str(Path(k["path"]).relative_to(ROOT)),
@@ -1864,7 +2054,12 @@ def main() -> int:
                              "train_launches": family_train.get(arch, {}).get(k["name"]),
                              **row}
                       for arch, row in family_rows.items()} if k["name"] == K1 else {}}
-        for k in kernels]}))
+        for k in kernels] + [
+        {"name": K1_BWD, "route": "cuda", "source": str(ops.BWD_SOURCE.relative_to(ROOT)),
+         "replaces": "src/repro/kernels/flash_attention/ops.py:36",
+         "train_launches": train_nums[dense.name]["io_aware"]["bwd_launches"][K1_BWD],
+         "train_path": train_paths[K1][1],
+         "train_path_launches": bwd_train, "shapes": bwd_rows}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

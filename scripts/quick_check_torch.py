@@ -20,6 +20,13 @@ still run; the exit code is 1 if any failed.
 Builds the four sources, then holds K1 past head dim 256 and K2 past state
 256 against their plain versions at phase 13's shapes in every dtype route
 (untimed), and K2 at the earlier shapes whose launch these change.
+
+  python3 scripts/quick_check_torch.py --bwd
+
+Builds the sources, then holds K1's backward kernel against its plain
+versions: ``chip_smoke.py``'s BWD_CASES in bf16 and fp16, then its train
+shapes (smollm-360m, tinyllama-1.1b) timed beside the plain recompute; and
+the forward, which now writes the log-sum-exp, at its test cases.
 """
 from __future__ import annotations
 
@@ -30,6 +37,28 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+def bwd_kernel_times(torch, ops, case, reps=5):
+    """Each backward kernel's device time a call at ``case``, bf16, from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S, H, KV, hd, causal, window = case
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn((B, S, n, hd), generator=g, device="cuda").to(torch.bfloat16)
+                   for n in (H, KV, KV, H))
+    o, lse = ops._forward(q, k, v, causal, window, with_lse=True)
+    for _ in range(2):
+        ops.run_padded(ops._launch_bwd, (q, k, v, o, do), lse, causal, window)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ops.run_padded(ops._launch_bwd, (q, k, v, o, do), lse, causal, window)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        print(f"[flash bwd kernels] {case}: {e.key[:90]} {us / reps / 1e3:.4f} ms a call, "
+              f"{e.count // reps} a call", flush=True)
 
 
 def main() -> int:
@@ -66,6 +95,26 @@ def main() -> int:
             traceback.print_exc()
             failed.append(name)
             print(f"FAILED {name}: {e!r}", flush=True)
+
+    if "--bwd" in sys.argv[1:]:
+        from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_lse_ref
+        refs = (attention_ref, attention_lse_ref, attention_bwd_ref)
+        for case in cs.FLASH_CASES + cs.BOUNDARY_CASES + cs.HD80_CASES:
+            for dtype in cs.FLASH_DTYPES:
+                check(f"flash {case} {dtype}", cs.check_flash, torch, ops, attention_ref,
+                      case, dtype)
+        for dtype in ("bfloat16", "float16"):
+            check(f"flash window=1 {dtype}", cs.check_flash_masked, torch, ops, dtype)
+            for case in cs.BWD_CASES:
+                check(f"flash bwd {case} {dtype}", cs.check_flash_bwd, torch, ops, refs,
+                      case, dtype)
+        for arch, case in cs.BWD_TRAIN_CASES.items():
+            check(f"flash bwd {arch} timed", cs.check_flash_bwd, torch, ops, refs, case,
+                  "bfloat16", timed=True)
+        check("flash bwd kernels", bwd_kernel_times, torch, ops,
+              cs.BWD_TRAIN_CASES["smollm-360m"])
+        print(f"[quick_check] {time.monotonic() - t0:.1f} s; failed: {failed or 'none'}")
+        return 1 if failed else 0
 
     if "--shapes" in sys.argv[1:]:
         from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref

@@ -41,7 +41,10 @@
 //     MN-major (hd contiguous) with the transpose bit;
 //   - the epilogue divides by the row sum (by 1 where it is 0), stages the
 //     tile in shared memory and writes it with coalesced 16-byte stores,
-//     rows past S left out.
+//     rows past S left out. Where the caller passes an `lse` buffer (a
+//     backward will run), it also writes each row's log-sum-exp of the
+//     scaled, masked scores, ln 2 * (m + log2 l), for flash_bwd_sm90.cu;
+//     with a null `lse` it writes nothing more.
 // Head dims 32 (64-byte swizzle), 64 (128-byte), 96 (three 32-column
 // atoms with the 64-byte swizzle), 128 and 256 (two or four 128-byte
 // swizzle atoms side by side) and 80 (hubert-xlarge: five 16-column atoms
@@ -155,8 +158,9 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS, HD <= 64 ? 4 : HD <= 80 ? 3 : HD <= 128 ? 2 : 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int S,
-                      int H, int KV, int causal, int window, float scale_log2) {
+                      const __grid_constant__ CUtensorMap tv, T* __restrict__ o,
+                      float* __restrict__ lse, int S, int H, int KV, int causal, int window,
+                      float scale_log2) {
   using L = Layout<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -280,6 +284,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     den[r] = l[r] == 0.f ? 1.f : l[r];
   }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row < S)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f : -INFINITY;
+    }
+  }
   const int lr = r0 - q0;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
@@ -298,8 +311,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int KV,
-           int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int H, int KV, int causal, int window, float scale, cudaStream_t stream) {
   using L = Layout<HD>;
   const uint64_t hd = HD, e = 2, s = S, b = B, nh = H, nkv = KV;
   const uint32_t atom = L::ATOM;
@@ -325,8 +338,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (ce != cudaSuccess) return ce;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   const float scale_log2 = static_cast<float>(1.4426950408889634 * double(scale));
-  kern<<<grid, NTHREADS, L::SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), S, H, KV, causal,
-                                            window, scale_log2);
+  kern<<<grid, NTHREADS, L::SMEM, stream>>>(tq, tk, tv, static_cast<T*>(o), lse, S, H, KV,
+                                            causal, window, scale_log2);
   return cudaGetLastError();
 }
 
@@ -557,16 +570,21 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B, int
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-             int KV, int hd, int causal, int window, float scale, cudaStream_t stream) {
-  if (hd > 256) return launch_wide<T>(q, k, v, o, B, S, H, KV, hd, causal, window, scale, stream);
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+             int H, int KV, int hd, int causal, int window, float scale, cudaStream_t stream) {
+  if (hd > 256) {
+    if (lse != nullptr) return cudaErrorInvalidValue;  // the column passes write no LSE
+    return launch_wide<T>(q, k, v, o, B, S, H, KV, hd, causal, window, scale, stream);
+  }
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
-    case 96: return launch<T, 96>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 96: return launch<T, 96>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, lse, B, S, H, KV, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -574,14 +592,16 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd), all contiguous, 16-byte
-// aligned, of one dtype: bf16 (is_f16 = 0) or fp16 (is_f16 = 1).
+// aligned, of one dtype: bf16 (is_f16 = 0) or fp16 (is_f16 = 1); lse null,
+// or (B,H,S) fp32 for each row's log-sum-exp (hd <= 256 only).
 // hd in {32, 64, 80, 96, 128, 256} or a multiple of 64 over 256; scale
 // multiplies Q.K^T (1/sqrt of the head dim before any padding).
-extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, int B,
-                              int S, int H, int KV, int hd, int causal, int window,
+extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int B, int S, int H, int KV, int hd, int causal, int window,
                               int is_f16, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f16 ? dispatch<__half>(q, k, v, o, B, S, H, KV, hd, causal, window, scale, st)
-                : dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
-                                          st);
+  float* l = static_cast<float*>(lse);
+  return is_f16 ? dispatch<__half>(q, k, v, o, l, B, S, H, KV, hd, causal, window, scale, st)
+                : dispatch<__nv_bfloat16>(q, k, v, o, l, B, S, H, KV, hd, causal, window,
+                                          scale, st);
 }

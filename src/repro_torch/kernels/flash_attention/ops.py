@@ -24,14 +24,22 @@ A CPU tensor goes to the plain version (``ref.attention_ref``); a CUDA
 tensor launches its dtype's kernel or raises. There is no fallback.
 
 The wrapper is a ``torch.autograd.Function``, as the reference's is a
-``custom_vjp``: the forward is the kernel, the backward recomputes the plain
-version from the saved inputs and differentiates it. It is not a kernel:
-the reference has no backward kernel either.
+``custom_vjp``. Its backward takes one of two routes, by what it sees:
+  - a CUDA bf16 / fp16 call at a width of ``BWD_WIDTHS`` (head dims up to
+    128, others padded as the forward pads them): ``csrc/flash_bwd_sm90.cu``,
+    dq, dk and dv on the tensor cores from q, k, v, the output, dO and each
+    row's log-sum-exp, which the forward then writes beside its output
+    (only when autograd will run a backward; a forward under ``no_grad``
+    writes none); the same ``run_padded`` pads and slices both;
+  - everything else (fp32, head dims past 128, CPU tensors): the
+    reference's own ``_bwd``, the plain version recomputed from the saved
+    q, k, v and differentiated.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -51,8 +59,12 @@ ROUTES = {
     torch.float16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (1,)),
     torch.float32: (_CSRC / "flash_fwd.cu", "flash_fwd", ()),
 }
+#: the backward kernel: bf16 and fp16 at these widths of ``launch_plan``
+BWD_SOURCE, BWD_ENTRY = _CSRC / "flash_bwd_sm90.cu", "flash_bwd_sm90"
+BWD_DTYPES = (torch.bfloat16, torch.float16)
+BWD_WIDTHS = (32, 64, 80, 96, 128)
 #: every source the wrapper may launch, each built once
-SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
+SOURCES = tuple(dict.fromkeys([*(src for src, _, _ in ROUTES.values()), BWD_SOURCE]))
 
 
 def route(dtype):
@@ -63,13 +75,20 @@ def route(dtype):
     return ROUTES[dtype]
 
 
-def _entry(source, name, n_extra):
+def _entry(source, name, n_ptr, n_int):
     fn = getattr(load(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * (7 + n_extra)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_kernel_takes(q):
+    """Whether a backward of q's call runs the backward kernel: a CUDA
+    bf16 / fp16 tensor whose head dim runs at one of ``BWD_WIDTHS``."""
+    return (q.device.type == "cuda" and q.dtype in BWD_DTYPES
+            and launch_plan(q.shape[-1])[0] in BWD_WIDTHS)
 
 
 def _check(q, k, v):
@@ -102,69 +121,123 @@ def launch_plan(hd):
     return w, -(-w // WIDE_BLOCK)
 
 
-def run_padded(q, k, v, causal, window, fn):
-    """``fn(q, k, v, causal, window, scale)`` at the kernel width of q's head
-    dim: q, k and v zero-padded on the last axis up to ``launch_plan``'s width,
-    ``scale`` = 1/sqrt(true head dim), and the output sliced back."""
-    hd = q.shape[-1]
+def run_padded(fn, tensors, *args):
+    """``fn(*tensors, *args, scale)`` at the kernel width of the head dim (the
+    last axis of every tensor): each tensor zero-padded on the last axis up to
+    ``launch_plan``'s width, ``scale`` = 1/sqrt(true head dim), and each of
+    ``fn``'s outputs (one tensor or a tuple) sliced back. Forward: q, k, v ->
+    out; backward: q, k, v, o, dO -> dq, dk, dv, the ``lse`` among ``args``.
+    Zero columns add 0 to q.k, to dO.V^T and to rowsum(dO * O), and give zero
+    output columns and zero gradient."""
+    hd = tensors[0].shape[-1]
     pad = launch_plan(hd)[0] - hd
     if pad:
-        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    out = fn(q, k, v, causal, window, 1.0 / math.sqrt(hd))
-    return out[..., :hd].contiguous() if pad else out
+        tensors = [torch.nn.functional.pad(t, (0, pad)) for t in tensors]
+    out = fn(*tensors, *args, 1.0 / math.sqrt(hd))
+    if not pad:
+        return out
+    cut = lambda t: t[..., :hd].contiguous()
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
-def _forward(q, k, v, causal, window):
-    """The forward: the plain version on the CPU, else the kernel."""
+def _forward(q, k, v, causal, window, with_lse=False):
+    """(out, lse): the plain version on the CPU, else the kernel; ``lse``
+    is each row's log-sum-exp, (B, H, S) fp32, written by the kernel only
+    ``with_lse``, else None."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        return attention_ref(q, k, v, causal=causal, window=window), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     route(q.dtype)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    return run_padded(q, k, v, causal, window, _launch)
+    lse = None
+    if with_lse:
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return run_padded(partial(_launch, lse=lse), (q, k, v), causal, window), lse
 
 
-def _launch(q, k, v, causal, window, scale):
-    """One launch of the kernel of q's dtype at a width of ``launch_plan``."""
+def _call(fn, name, device, *args):
+    """The C entry point ``fn(*args, stream)`` on ``device`` and its current
+    stream; RuntimeError on its non-zero return (a CUDA error). The device is
+    made current first: autograd's device threads, where a backward (and,
+    under remat, its forward) runs, have a CUDA context current only after
+    PyTorch's first kernel there, and the library's own runtime refuses a
+    launch before that."""
+    with torch.cuda.device(device):
+        torch.cuda.set_device(device)
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def _launch(q, k, v, causal, window, scale, lse=None):
+    """One launch of the kernel of q's dtype at a width of ``launch_plan``;
+    a 16-bit launch also writes ``lse`` unless it is None."""
     B, S, H, hd = q.shape
     source, name, extra = route(q.dtype)
     if S == 0 or B == 0:
         raise ValueError("flash_attention: empty batch or sequence")
     if name == "flash_fwd_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: TMA needs q, k, v 16-byte aligned")
-    fn = _entry(source, name, len(extra))
+    # the 16-bit route's entry takes the lse pointer after o
+    lse_ptr = (None if lse is None else lse.data_ptr(),) if name == "flash_fwd_sm90" else ()
+    fn = _entry(source, name, 4 + len(lse_ptr), 7 + len(extra))
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, scale,
-                 stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+    _call(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+          *lse_ptr, B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, scale)
     flash_attention.launches += 1
     return out
 
 
+def _launch_bwd(q, k, v, o, do, lse, causal, window, scale):
+    """One call of the backward kernel (two launches: dq with each row's
+    LSE and D, then dk and dv) at a width of ``BWD_WIDTHS``; counted in
+    ``flash_attention.bwd_launches``."""
+    B, S, H, hd = q.shape
+    if q.dtype not in BWD_DTYPES or hd not in BWD_WIDTHS:
+        raise ValueError(f"flash_attention: no backward kernel for {q.dtype} at width {hd}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_attention: TMA needs q, k, v, dO 16-byte aligned")
+    fn = _entry(BWD_SOURCE, BWD_ENTRY, 10, 8)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # each row's (LSE * log2(e), rowsum(dO * O)), rows up to a multiple of 64
+    rowstat = torch.empty((B, H, -(-S // 64) * 64, 2), dtype=torch.float32, device=q.device)
+    _call(fn, BWD_ENTRY, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          rowstat.data_ptr(), B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
+          int(q.dtype == torch.float16), scale)
+    flash_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
-    """Forward through ``_forward``; backward through ``attention_ref``,
-    recomputed from the saved q, k, v (the reference's ``_bwd``)."""
+    """Forward through ``_forward``. Backward: with the forward's ``lse``,
+    the backward kernel; without it, ``attention_ref`` recomputed from the
+    saved q, k, v and differentiated (the reference's ``_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, with_lse):
         ctx.causal, ctx.window = causal, window
-        ctx.save_for_backward(q, k, v)
         with torch.no_grad():
-            return _forward(q, k, v, causal, window)
+            out, lse = _forward(q, k, v, causal, window, with_lse)
+        ctx.save_for_backward(q, k, v, *(() if lse is None else (out, lse)))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        saved = ctx.saved_tensors
+        if len(saved) == 5:
+            q, k, v, out, lse = saved
+            dq, dk, dv = run_padded(_launch_bwd, (q, k, v, out, g.contiguous()), lse,
+                                    ctx.causal, ctx.window)
+            return dq, dk, dv, None, None, None
+        qkv = [t.detach().requires_grad_() for t in saved]
         with torch.enable_grad():
             out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
@@ -172,8 +245,14 @@ def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
     differentiable in q, k and v. ``block_q``/``block_k`` are the TPU
     kernel's tile sizes: accepted, and without effect on the result."""
     _check(q, k, v)
-    return FlashAttention.apply(q, k, v, causal, window)
+    with_lse = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+                and bwd_kernel_takes(q))
+    return FlashAttention.apply(q, k, v, causal, window, with_lse)
 
 
-#: kernel launches since the count was last set to 0 (CPU calls not counted)
+#: forward kernel launches since the count was last set to 0 (CPU calls not
+#: counted)
 flash_attention.launches = 0
+#: backward kernel calls (each two launches: dq, then dk and dv) since the
+#: count was last set to 0
+flash_attention.bwd_launches = 0

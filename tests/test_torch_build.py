@@ -65,11 +65,13 @@ def test_each_accepted_dtype_names_a_source_and_its_entry_point(dtype, source):
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src.read_text())
     assert sig, f"{src.name} has no C entry point {name}"
     args = [a.strip() for a in sig.group(1).split(",")]
-    # q, k, v, o; B, S, H, KV, hd, causal, window; the route's extras; the
-    # scale (of the unpadded head dim); stream
-    assert len(args) == 4 + 7 + len(extra) + 2
-    assert all("void*" in a for a in args[:4] + args[-1:])
-    assert all(a.startswith("int ") for a in args[4:-2])
+    # q, k, v, o (+ the Hopper route's lse); B, S, H, KV, hd, causal, window;
+    # the route's extras; the scale (of the unpadded head dim); stream
+    n_ptr = 4 + (source == "flash_fwd_sm90.cu")
+    assert len(args) == n_ptr + 7 + len(extra) + 2
+    assert all("void*" in a for a in args[:n_ptr] + args[-1:])
+    assert n_ptr == 4 or args[4] == "void* lse"
+    assert all(a.startswith("int ") for a in args[n_ptr:-2])
     assert args[-2].startswith("float ")
 
 
@@ -81,7 +83,28 @@ def test_other_dtypes_raise(dtype):
 
 
 def test_sources_are_built_once_each():
-    assert len(ops.SOURCES) == len(set(ops.SOURCES)) == 2
+    """Both forward routes' sources and the backward kernel's."""
+    assert len(ops.SOURCES) == len(set(ops.SOURCES)) == 3
+    assert ops.BWD_SOURCE in ops.SOURCES
+
+
+def test_the_backward_source_has_the_entry_point_the_wrapper_calls():
+    """flash_bwd_sm90.cu: q, k, v, o, lse, dout, dq, dk, dv and the D
+    scratch; B, S, H, KV, hd, causal, window, is_f16; the scale; stream (the
+    counts ``ops._launch_bwd`` gives ctypes), built against the shared
+    header, and every kernel in it named ``flash_bwd``, none ``flash_fwd``."""
+    text = ops.BWD_SOURCE.read_text()
+    sig = re.search(r'extern "C" int ' + ops.BWD_ENTRY + r"\(([^)]*)\)", text)
+    assert sig and '#include "hopper.cuh"' in text
+    args = [a.strip() for a in sig.group(1).split(",")]
+    assert len(args) == 10 + 8 + 2
+    assert all("void*" in a for a in args[:10] + args[-1:])
+    assert all(a.startswith("int ") for a in args[10:-2]) and args[-2].startswith("float ")
+    kernels = re.findall(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                         text)
+    assert len(kernels) == 2
+    assert all("flash_bwd" in k and "flash_fwd" not in k for k in kernels)
+    assert build.library_path(ops.BWD_SOURCE).name.startswith("flash_bwd_sm90-")
 
 
 @pytest.mark.parametrize("dtype,source,n_ptr", [(torch.bfloat16, "ssd_fwd_sm90.cu", 10),

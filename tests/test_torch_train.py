@@ -486,7 +486,9 @@ def test_cuda_grads_through_the_kernel(kernel, dtype, out_tol, grad_tol):
     model whose loss goes through the kernel gives every parameter a
     gradient, and gradients that agree with the plain path's within
     ``grad_tol`` of each leaf's largest |g| (the forwards differ by the
-    kernel's tolerance ``out_tol``, the backwards are the same recompute)."""
+    kernel's tolerance ``out_tol``; the flash route's 16-bit backwards run
+    its backward kernel, once a layer, its fp32 one and the SSD scan's
+    the plain recompute)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -502,11 +504,13 @@ def test_cuda_grads_through_the_kernel(kernel, dtype, out_tol, grad_tol):
     b = {k: v.cuda() for k, v in torch_batch(batch_of(cfg.vocab_size, 2, S, 7)).items()}
     grads, losses = [], []
     for on in (True, False):
-        n0 = counter.launches
+        n0, b0 = counter.launches, flash_ops.flash_attention.bwd_launches
         loss = Model(cfg.replace(**{flag: on})).loss(params, b)
         loss.backward()
         torch.cuda.synchronize()
         assert counter.launches - n0 == (2 * cfg.n_layers if on else 0)
+        by_kernel = on and kernel == "flash" and dtype != "float32"
+        assert flash_ops.flash_attention.bwd_launches - b0 == (cfg.n_layers if by_kernel else 0)
         missing = [k for k, p in params.named_parameters() if p.grad is None]
         assert not missing, f"no gradient through the kernel for {missing}"
         grads.append({k: p.grad.float() for k, p in params.named_parameters()})
