@@ -19,7 +19,8 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      alone, for the SSD scan also with L2 flushed before each call, and its
      host time a call), the plain version's, a PyTorch library call's where
      one computes the same function (a yardstick only) and its bound (the
-     least time the card could take for the same work); then K1's backward
+     least time the card could take for the same work, the benchmark's
+     ``bench/lib/flops.py``); then K1's backward
      kernel (bf16 and fp16) against ``attention_bwd_ref`` (fp32, from the
      kernel's own output and log-sum-exp) at the test cases, and at the
      train shapes of smollm-360m and tinyllama-1.1b (bf16) also against the
@@ -146,12 +147,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
+from bench.lib import flops as yardstick
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense): memory rate,
-# and the operation rate by input type (fp32 outside the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+ROOT = Path(__file__).resolve().parent
 
 # (B, S, H, KV, hd, causal, window): tests/test_torch_flash.py's cases, its
 # tile-boundary cases, then the shape of one serving prefill of
@@ -384,40 +382,6 @@ def timings(torch, fn, reps=20):
             "host_ms": host_ms(torch, fn, reps * 5 // 2)}
 
 
-def flash_bound(torch, case, dtype):
-    """(ms, "bytes" | "operations"): the larger of the traffic (q, k, v
-    read once, o written once) over the memory rate and the work of the
-    valid (q, k) pairs of this mask (2 products of 2*hd FLOPs each) over
-    the peak rate for the input type."""
-    B, S, H, KV, hd, causal, window = case
-    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
-    mask = (kp <= qp) if causal else torch.ones((S, S), dtype=torch.bool)
-    if window:
-        mask = mask & (kp > qp - window)
-    flops = 4 * hd * int(mask.sum()) * B * H
-    nbytes = B * S * (2 * H + 2 * KV) * hd * (4 if dtype == "float32" else 2)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def ssd_bound(case, dtype):
-    """(ms, "bytes" | "operations", fp32 CUDA-core ms): the larger of the
-    traffic (x, dt, la, B, C, D read once, y and h_last written once) over
-    the memory rate and the work over the peak rate for x's type. The work
-    is C.B^T over the causal pairs once per (batch, chunk), and per head
-    the intra-chunk product over the causal pairs, the inter-chunk product
-    and the state update, 2 FLOPs a multiply-add."""
-    b, nc, Q, H, P, N = case
-    pairs = Q * (Q + 1) // 2
-    flops = 2 * b * nc * (pairs * N + H * (pairs * P + 2 * Q * N * P))
-    xb = 4 if dtype == "float32" else 2
-    nbytes = (2 * b * nc * Q * H * P * xb + 4 * (2 * b * nc * Q * H + 2 * b * nc * Q * N
-                                                 + H + b * H * N * P))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, by, flops / PEAK_FLOPS["float32"] * 1e3
-
-
 def build_all(sources):
     """Build every source afresh, one nvcc each, all at once; prints each
     kernel's registers and spills as ptxas reports them."""
@@ -469,7 +433,8 @@ def check_flash(torch, ops, attention_ref, case, dtype, seed=0, timed=False, rep
     else:
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                      enable_gqa=True)
-    bound_ms, bound_by = flash_bound(torch, case, dtype)
+    bound_s, bound_by = yardstick.flash_bound(case, dtype)
+    bound_ms = bound_s * 1e3
     kern = timings(torch, lambda: ops.flash_attention(q, k, v, causal, window), reps)
     sdpa = timings(torch, lib, reps)
     row = {"max_abs_err": err, "ms": kern["ms"],
@@ -523,7 +488,9 @@ def flash_bwd_bound(torch, case, dtype):
     """(ms, "bytes" | "operations"): the larger of the traffic (q, k, v, o
     and dO read once, dq, dk and dv written once) over the memory rate and
     the work of the valid (q, k) pairs (five products of 2*hd FLOPs each:
-    S, dP, dV, dK, dQ) over the peak rate for the input type."""
+    S, dP, dV, dK, dQ) over the peak rate for the input type, at the
+    benchmark's peaks (``bench/lib/flops.py`` has no backward bound over
+    these masks)."""
     B, S, H, KV, hd, causal, window = case
     qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
     mask = (kp <= qp) if causal else torch.ones((S, S), dtype=torch.bool)
@@ -531,7 +498,7 @@ def flash_bwd_bound(torch, case, dtype):
         mask = mask & (kp > qp - window)
     flops = 10 * hd * int(mask.sum()) * B * H
     nbytes = B * S * (3 * H + 2 * KV + H + 2 * KV) * hd * 2
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = flops / yardstick.PEAK_FLOPS[dtype], nbytes / yardstick.HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -684,7 +651,10 @@ def check_ssd(torch, ops, ssd_scan_ref, case, dtype, seed=0, model=None):
         if max(fracs) > 1:
             raise AssertionError(f"ssd {case} {dtype}: kernel and tf32 model differ by "
                                  f"{max(fracs):.3g} of their tolerance")
-    bound_ms, bound_by, fp32_ms = ssd_bound(case, dtype)
+    bound_s, bound_by = yardstick.ssd_bound(case, dtype)
+    bound_ms = bound_s * 1e3
+    # the same work on the CUDA cores, at the fp32 peak
+    fp32_ms = yardstick.ssd_flops(case) / yardstick.PEAK_FLOPS["float32"] * 1e3
     kern = timings(torch, lambda: ops.ssd_scan(x, dt, B, C, la, D))
     row = {"max_abs_err": err, "ms": kern["ms"],
            "plain_ms": cuda_ms(torch, lambda: ssd_scan_ref(x, dt, B, C, la, D)),
@@ -1566,7 +1536,7 @@ def dryrun_phase(measured, step_s):
         if abs(rel) > MEMORY_RTOL:
             raise AssertionError(f"{key}: predicted peak off by {rel:+.1%}")
     flops = recs["tinyllama-1.1b/train"]["flops"]
-    nums["train_flops_share"] = flops / step_s / PEAK_FLOPS["bfloat16"]
+    nums["train_flops_share"] = flops / step_s / yardstick.PEAK_FLOPS["bfloat16"]
     print(f"[dryrun] tinyllama-1.1b train step: {flops:.4e} flops traced over {step_s:.4f} s "
           f"measured = {flops / step_s / 1e12:.2f} TFLOP/s, "
           f"{nums['train_flops_share']:.1%} of the bf16 dense peak")

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's CUDA sources at first use, load them with ctypes, and
+launch their C entry points: the one launch path of every kernel.
 
 Each ``csrc/*.cu`` file has a plain C interface, so ``nvcc`` builds it into
 a shared library in seconds (PyTorch's headers are never included). A
@@ -7,6 +8,8 @@ source may include the headers beside it and the shared Hopper helpers in
 at the root of the checkout (listed in ``.gitignore``), named by a hash of
 its source and of every header it can include, so an edited source or
 header is rebuilt and an unchanged one is loaded as it is.
+
+Every entry point takes the stream last and returns 0 or a CUDA error.
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SHARED_CSRC = Path(__file__).resolve().parent / "csrc"
@@ -72,3 +77,28 @@ def load(source: Path) -> ctypes.CDLL:
     if key not in _LOADED:
         _LOADED[key] = ctypes.CDLL(str(build(source)[0]))
     return _LOADED[key]
+
+
+def entry(source: Path, name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``source``'s library, its ``argtypes``
+    (``argtypes``, then the stream pointer) and ``restype`` (int) set once
+    per process."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, name: str, device, *args) -> None:
+    """The C entry point ``fn(*args, stream)`` on ``device`` and its current
+    stream; RuntimeError naming ``name`` on its non-zero return (a CUDA
+    error). The device is made current first: autograd's device threads,
+    where a backward (and, under remat, its forward) runs, have a CUDA
+    context current only after PyTorch's first kernel there, and the
+    library's own runtime refuses a launch before that."""
+    with torch.cuda.device(device):
+        torch.cuda.set_device(device)
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err}")

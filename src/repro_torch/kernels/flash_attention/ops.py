@@ -37,14 +37,14 @@ The wrapper is a ``torch.autograd.Function``, as the reference's is a
 """
 from __future__ import annotations
 
-import ctypes
 import math
+from ctypes import c_float, c_int, c_void_p
 from functools import partial
 from pathlib import Path
 
 import torch
 
-from ..build import load
+from ..build import entry, launch
 from .ref import attention_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,35 +53,35 @@ WIDTHS = (32, 64, 80, 96, 128, 256)
 #: past the last width: the head dim padded to a multiple of WIDE_STEP, the
 #: output columns in passes of at most WIDE_BLOCK
 WIDE_STEP, WIDE_BLOCK = 64, 256
-#: dtype -> (source, C entry point, trailing int arguments before the scale)
+#: each C entry point: (source, name, the types of its arguments before the
+#: stream). 16-bit: q, k, v, o, lse; B, S, H, KV, hd, causal, window, is_f16;
+#: the scale. fp32: the same without lse and is_f16.
+FWD_SM90 = (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90",
+            (c_void_p,) * 5 + (c_int,) * 8 + (c_float,))
+FWD_FP32 = (_CSRC / "flash_fwd.cu", "flash_fwd", (c_void_p,) * 4 + (c_int,) * 7 + (c_float,))
+#: dtype -> (*its entry point, trailing int arguments before the scale)
 ROUTES = {
-    torch.bfloat16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (0,)),
-    torch.float16: (_CSRC / "flash_fwd_sm90.cu", "flash_fwd_sm90", (1,)),
-    torch.float32: (_CSRC / "flash_fwd.cu", "flash_fwd", ()),
+    torch.bfloat16: (*FWD_SM90, (0,)),
+    torch.float16: (*FWD_SM90, (1,)),
+    torch.float32: (*FWD_FP32, ()),
 }
-#: the backward kernel: bf16 and fp16 at these widths of ``launch_plan``
-BWD_SOURCE, BWD_ENTRY = _CSRC / "flash_bwd_sm90.cu", "flash_bwd_sm90"
+#: the backward kernel: bf16 and fp16 at these widths of ``launch_plan``.
+#: q, k, v, o, lse, dO, dq, dk, dv, the rows' (LSE, D) scratch; B, S, H,
+#: KV, hd, causal, window, is_f16; the scale
+BWD_SOURCE, BWD_ENTRY, BWD_ARGS = (_CSRC / "flash_bwd_sm90.cu", "flash_bwd_sm90",
+                                   (c_void_p,) * 10 + (c_int,) * 8 + (c_float,))
 BWD_DTYPES = (torch.bfloat16, torch.float16)
 BWD_WIDTHS = (32, 64, 80, 96, 128)
 #: every source the wrapper may launch, each built once
-SOURCES = tuple(dict.fromkeys([*(src for src, _, _ in ROUTES.values()), BWD_SOURCE]))
+SOURCES = tuple(dict.fromkeys([*(r[0] for r in ROUTES.values()), BWD_SOURCE]))
 
 
 def route(dtype):
-    """(source, entry point, extra int arguments) of ``dtype``'s kernel;
-    ValueError for a dtype that neither kernel takes."""
+    """(source, entry point, its argument types, extra int arguments) of
+    ``dtype``'s kernel; ValueError for a dtype that neither kernel takes."""
     if dtype not in ROUTES:
         raise ValueError(f"flash_attention: dtype {dtype} not in {tuple(ROUTES)}")
     return ROUTES[dtype]
-
-
-def _entry(source, name, n_ptr, n_int):
-    fn = getattr(load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def bwd_kernel_takes(q):
@@ -158,35 +158,21 @@ def _forward(q, k, v, causal, window, with_lse=False):
     return run_padded(partial(_launch, lse=lse), (q, k, v), causal, window), lse
 
 
-def _call(fn, name, device, *args):
-    """The C entry point ``fn(*args, stream)`` on ``device`` and its current
-    stream; RuntimeError on its non-zero return (a CUDA error). The device is
-    made current first: autograd's device threads, where a backward (and,
-    under remat, its forward) runs, have a CUDA context current only after
-    PyTorch's first kernel there, and the library's own runtime refuses a
-    launch before that."""
-    with torch.cuda.device(device):
-        torch.cuda.set_device(device)
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err}")
-
-
 def _launch(q, k, v, causal, window, scale, lse=None):
     """One launch of the kernel of q's dtype at a width of ``launch_plan``;
     a 16-bit launch also writes ``lse`` unless it is None."""
     B, S, H, hd = q.shape
-    source, name, extra = route(q.dtype)
+    source, name, sig, extra = route(q.dtype)
     if S == 0 or B == 0:
         raise ValueError("flash_attention: empty batch or sequence")
     if name == "flash_fwd_sm90" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: TMA needs q, k, v 16-byte aligned")
     # the 16-bit route's entry takes the lse pointer after o
     lse_ptr = (None if lse is None else lse.data_ptr(),) if name == "flash_fwd_sm90" else ()
-    fn = _entry(source, name, 4 + len(lse_ptr), 7 + len(extra))
+    fn = entry(source, name, sig)
     out = torch.empty_like(q)
-    _call(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-          *lse_ptr, B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, scale)
+    launch(fn, name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           *lse_ptr, B, S, H, k.shape[2], hd, int(bool(causal)), int(window), *extra, scale)
     flash_attention.launches += 1
     return out
 
@@ -200,14 +186,14 @@ def _launch_bwd(q, k, v, o, do, lse, causal, window, scale):
         raise ValueError(f"flash_attention: no backward kernel for {q.dtype} at width {hd}")
     if any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash_attention: TMA needs q, k, v, dO 16-byte aligned")
-    fn = _entry(BWD_SOURCE, BWD_ENTRY, 10, 8)
+    fn = entry(BWD_SOURCE, BWD_ENTRY, BWD_ARGS)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # each row's (LSE * log2(e), rowsum(dO * O)), rows up to a multiple of 64
     rowstat = torch.empty((B, H, -(-S // 64) * 64, 2), dtype=torch.float32, device=q.device)
-    _call(fn, BWD_ENTRY, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-          rowstat.data_ptr(), B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
-          int(q.dtype == torch.float16), scale)
+    launch(fn, BWD_ENTRY, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           rowstat.data_ptr(), B, S, H, k.shape[2], hd, int(bool(causal)), int(window),
+           int(q.dtype == torch.float16), scale)
     flash_attention.bwd_launches += 1
     return dq, dk, dv
 
@@ -240,10 +226,9 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, window=0, block_q=512, block_k=512):
+def flash_attention(q, k, v, causal=True, window=0):
     """q: (B,S,H,hd); k, v: (B,S,KV,hd). Returns (B,S,H,hd) in q's dtype,
-    differentiable in q, k and v. ``block_q``/``block_k`` are the TPU
-    kernel's tile sizes: accepted, and without effect on the result."""
+    differentiable in q, k and v."""
     _check(q, k, v)
     with_lse = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
                 and bwd_kernel_takes(q))

@@ -33,45 +33,41 @@ the reference has no backward kernel either.
 """
 from __future__ import annotations
 
-import ctypes
+from ctypes import c_int, c_void_p
 from pathlib import Path
 
 import torch
 
-from ..build import load
+from ..build import entry, launch
 from .ref import ssd_scan_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-#: x's dtype -> (source, C entry point, trailing int arguments before the
-#: stream; a route with any also takes a CB scratch buffer). Both take a
-#: scratch buffer for the slices' parts of y.
+#: each C entry point: (source, name, the types of its arguments before the
+#: stream). 16-bit: x, dt, B, C, la, D, y, h_last, the CB scratch, the
+#: scratch of the slices' parts of y; b, nc, Q, H, P, N, is_f16. fp32: the
+#: same without the CB scratch and is_f16.
+FWD_SM90 = (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (c_void_p,) * 10 + (c_int,) * 7)
+FWD_FP32 = (_CSRC / "ssd_fwd.cu", "ssd_fwd", (c_void_p,) * 9 + (c_int,) * 6)
+#: x's dtype -> (*its entry point, trailing int arguments before the stream)
 ROUTES = {
-    torch.bfloat16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (0,)),
-    torch.float16: (_CSRC / "ssd_fwd_sm90.cu", "ssd_fwd_sm90", (1,)),
-    torch.float32: (_CSRC / "ssd_fwd.cu", "ssd_fwd", ()),
+    torch.bfloat16: (*FWD_SM90, (0,)),
+    torch.float16: (*FWD_SM90, (1,)),
+    torch.float32: (*FWD_FP32, ()),
 }
 #: every source the wrapper may launch, each built once
-SOURCES = tuple(dict.fromkeys(src for src, _, _ in ROUTES.values()))
+SOURCES = tuple(dict.fromkeys(r[0] for r in ROUTES.values()))
 X_DTYPES = tuple(ROUTES)
 #: steps of a sub-chunk, the state rows of a slice, the CB tiles' rows
 SUB_CHUNK, N_SLICE, TILE = 256, 256, 64
 
 
 def route(dtype):
-    """(source, entry point, extra int arguments) of the kernel for x of
-    ``dtype``; ValueError for a dtype that neither kernel takes."""
+    """(source, entry point, its argument types, extra int arguments) of
+    the kernel for x of ``dtype``; ValueError for a dtype that neither
+    kernel takes."""
     if dtype not in ROUTES:
         raise ValueError(f"ssd_scan: x dtype {dtype} not in {X_DTYPES}")
     return ROUTES[dtype]
-
-
-def _entry(source, name, extra):
-    fn = getattr(load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (10 if extra else 9)
-                       + [ctypes.c_int] * (6 + len(extra)) + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _pad_last(t, mult):
@@ -118,7 +114,7 @@ def _forward(x, dt, B, C, la, D):
         raise ValueError("ssd_scan: inputs must be contiguous")
     if x.numel() == 0 or N == 0:
         raise ValueError("ssd_scan: empty input")
-    source, name, extra = route(x.dtype)
+    source, name, sig, extra = route(x.dtype)
     # zero columns: a state column of zeros stays 0 and adds 0 to C.h; an x
     # column of zeros gives y and h columns of zeros; both are sliced off
     B, C = _pad_last(B, 4), _pad_last(C, 4)
@@ -129,7 +125,7 @@ def _forward(x, dt, B, C, la, D):
         raise ValueError("ssd_scan: B and C must be 16-byte aligned")
     if extra and x.data_ptr() % 8:
         raise ValueError("ssd_scan: x must be 8-byte aligned")
-    fn = _entry(source, name, extra)
+    fn = entry(source, name, sig)
     y = torch.empty((b, nc * Q, H, Pp), dtype=x.dtype, device=x.device)
     h_last = torch.empty((b, H, Np, Pp), dtype=torch.float32, device=x.device)
     # C.B^T of every (batch, chunk, sub-chunk of 256 steps), 64 x 64 tiles
@@ -141,13 +137,10 @@ def _forward(x, dt, B, C, la, D):
     nsl = -(-Np // N_SLICE)
     yp = (torch.empty((nsl, b, nc * Q, H, Pp), dtype=torch.float32, device=x.device)
           if nsl > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), la.data_ptr(),
-                 D.data_ptr(), y.data_ptr(), h_last.data_ptr(), *(t.data_ptr() for t in cb),
-                 None if yp is None else yp.data_ptr(), b, nc, Q, H, Pp, Np, *extra, stream)
-    if err:
-        raise RuntimeError(f"{name}: CUDA error {err}")
+    launch(fn, name, x.device, x.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
+           la.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+           *(t.data_ptr() for t in cb), None if yp is None else yp.data_ptr(),
+           b, nc, Q, H, Pp, Np, *extra)
     ssd_scan.launches += 1
     if Pp != P:
         y = y[..., :P].contiguous()

@@ -98,8 +98,7 @@ def _chunked_attn(q, k, v, positions, causal, window, chunk_q):
 
 
 def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
-                   use_flash=False, flash_block=512, chunk_q_threshold=8192,
-                   chunk_q=1024, return_kv=False):
+                   use_flash=False, chunk_q_threshold=8192, chunk_q=1024, return_kv=False):
     """x: (B, S, D) -> (B, S, D_out), ``D_out = p.o.shape[-1]``; with
     ``return_kv`` also the roped K and the V of this call, (B, S, KV, hd)
     each, for the prefill cache fill."""
@@ -111,7 +110,7 @@ def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
     def attend(q, k, v, positions):
         if use_flash:
             return flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             causal, window, flash_block, flash_block)
+                                             causal, window)
         if S >= chunk_q_threshold and S % chunk_q == 0:
             return _chunked_attn(q, k, v, positions, causal, window, chunk_q)
         return _dense_attn(q, k, v, positions, causal, window)

@@ -5,7 +5,7 @@ encoder, VLM), the pure-SSM family (mamba2) and the hybrid family (zamba2).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -20,10 +20,9 @@ from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
 from .mamba2 import (MAMBA_CACHE_AXES, MambaCache, SSMLayer, mamba2_decode, mamba2_forward,
                      ssm_layer)
 from .transformer import (DecodeState, Transformer, _embed_inputs, _logits, _scan_layers,
-                          init_cache, transformer_decode_step, transformer_init,
-                          transformer_loss, transformer_prefill)
-from .zamba2 import (HybridState, Zamba2, zamba2_decode_step, zamba2_forward,
-                     zamba2_init, zamba2_init_state)
+                          init_cache, transformer_decode_step, transformer_loss,
+                          transformer_prefill)
+from .zamba2 import HybridState, Zamba2, zamba2_decode_step, zamba2_forward, zamba2_init_state
 
 
 # --------------------------------------------------------------------------
@@ -47,10 +46,6 @@ class SSM(nn.Module):
             self.head = nn.Parameter(_init((cfg.d_model, vpad),
                                            1.0 / math.sqrt(cfg.d_model), cfg.dtype,
                                            device, generator))
-
-
-def ssm_init(generator, cfg, device=None) -> SSM:
-    return SSM(cfg, device, generator)
 
 
 def _ssm_backbone(params, cfg, h):
@@ -159,9 +154,37 @@ def hybrid_decode_step(params, cfg, state: HybridState, tokens):
 # --------------------------------------------------------------------------
 # Facade
 # --------------------------------------------------------------------------
+class Family(NamedTuple):
+    """What ``Model`` calls for one family."""
+    cls: type[nn.Module]        # holds the parameters: cls(cfg, device, generator)
+    loss: Callable              # (params, cfg, batch) -> loss
+    prefill: Callable           # (params, cfg, batch, cache_len) -> (logits, state)
+    decode_step: Callable       # (params, cfg, state, tokens) -> (logits, state)
+    state_axes: tuple           # the decode state's logical axes, ``pos`` ()
+    init_state: Callable        # (cfg, batch, cache_len, device) -> empty decode state
+
+
+#: dense, MoE, encoder and VLM
+TRANSFORMER = Family(Transformer, transformer_loss, transformer_prefill, transformer_decode_step,
+                     DecodeState(KV_CACHE_AXES, ()),
+                     lambda cfg, b, n, dev: DecodeState(init_cache(cfg, b, n, cfg.dtype, dev), n))
+FAMILIES = {
+    "ssm": Family(SSM, ssm_loss, ssm_prefill, ssm_decode_step, SSMState(MAMBA_CACHE_AXES, ()),
+                  lambda cfg, b, n, dev: SSMState(ssm_init_caches(cfg, b, dev), n)),
+    "hybrid": Family(Zamba2, hybrid_loss, hybrid_prefill, hybrid_decode_step,
+                     HybridState(MAMBA_CACHE_AXES, KV_CACHE_AXES, ()),
+                     lambda cfg, b, n, dev: zamba2_init_state(cfg, b, n, cfg.dtype, dev)._replace(pos=n)),
+}
+
+
+def family(cfg) -> Family:
+    """``cfg.family``'s record: its own, or the transformer's."""
+    return FAMILIES.get(cfg.family, TRANSFORMER)
+
+
 def model_class(cfg) -> type[nn.Module]:
     """The module class that holds ``cfg.family``'s parameters."""
-    return {"ssm": SSM, "hybrid": Zamba2}.get(cfg.family, Transformer)
+    return family(cfg).cls
 
 
 #: the model's attributes that hold one module per layer
@@ -171,18 +194,14 @@ STACKED = ("layers", "mamba_layers")
 class Model:
     def __init__(self, cfg):
         self.cfg = cfg
+        self.family = family(cfg)
 
     def init(self, seed: int = 0, device=None) -> Transformer | SSM | Zamba2:
         """Weights drawn from ``torch.Generator(device).manual_seed(seed)``
         (not the JAX init's numbers: ``repro_torch.convert`` brings those)."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        f = self.cfg.family
-        if f == "ssm":
-            return ssm_init(gen, self.cfg, device)
-        if f == "hybrid":
-            return zamba2_init(gen, self.cfg, device)
-        return transformer_init(gen, self.cfg, device)
+        return self.family.cls(self.cfg, device, gen)
 
     @staticmethod
     def logical_axes(params: nn.Module) -> dict[str, tuple]:
@@ -201,55 +220,27 @@ class Model:
 
     def loss(self, params, batch):
         """The training loss, differentiable in ``params``' tensors."""
-        f = self.cfg.family
-        if f == "ssm":
-            return ssm_loss(params, self.cfg, batch)
-        if f == "hybrid":
-            return hybrid_loss(params, self.cfg, batch)
-        return transformer_loss(params, self.cfg, batch)
+        return self.family.loss(params, self.cfg, batch)
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len):
-        f = self.cfg.family
-        if f == "ssm":
-            return ssm_prefill(params, self.cfg, batch, cache_len)
-        if f == "hybrid":
-            return hybrid_prefill(params, self.cfg, batch, cache_len)
-        return transformer_prefill(params, self.cfg, batch, cache_len)
+        return self.family.prefill(params, self.cfg, batch, cache_len)
 
     @torch.no_grad()
     @span("model.decode")
     def decode_step(self, params, state, tokens):
-        f = self.cfg.family
-        if f == "ssm":
-            return ssm_decode_step(params, self.cfg, state, tokens)
-        if f == "hybrid":
-            return hybrid_decode_step(params, self.cfg, state, tokens)
-        return transformer_decode_step(params, self.cfg, state, tokens)
+        return self.family.decode_step(params, self.cfg, state, tokens)
 
     def decode_state_axes(self):
         """The logical axes of ``init_decode_state``'s tensors, a tree of the
         same structure (``pos`` is ``()``)."""
-        f = self.cfg.family
-        if f == "ssm":
-            return SSMState(MAMBA_CACHE_AXES, ())
-        if f == "hybrid":
-            return HybridState(MAMBA_CACHE_AXES, KV_CACHE_AXES, ())
-        return DecodeState(KV_CACHE_AXES, ())
+        return self.family.state_axes
 
     def init_decode_state(self, batch, cache_len, device=None):
         """The empty decode state of ``batch`` sequences, its caches sized for
         ``cache_len`` and ``pos = cache_len``, as the reference builds it
         for the dry-run; under a mesh laid out by ``decode_state_axes``."""
-        cfg = self.cfg
-        device = resolve_device(device)
-        f = cfg.family
-        if f == "ssm":
-            return SSMState(ssm_init_caches(cfg, batch, device), cache_len)
-        if f == "hybrid":
-            st = zamba2_init_state(cfg, batch, cache_len, cfg.dtype, device)
-            return HybridState(st.mamba, st.attn, cache_len)
-        return DecodeState(init_cache(cfg, batch, cache_len, cfg.dtype, device), cache_len)
+        return self.family.init_state(self.cfg, batch, cache_len, resolve_device(device))
 
     @torch.no_grad()
     def encode(self, params, batch):

@@ -92,10 +92,6 @@ class Transformer(nn.Module):
                                            device, generator))
 
 
-def transformer_init(generator, cfg, device=None) -> Transformer:
-    return Transformer(cfg, device, generator)
-
-
 def _scan_layers(params, cfg, h, positions):
     """Every block in turn; with ``cfg.remat`` each one is checkpointed.
     Returns (h, the blocks' MoE aux losses summed; 0.0 for dense blocks)."""

@@ -94,10 +94,6 @@ class Zamba2(nn.Module):
                                            device, generator))
 
 
-def zamba2_init(generator, cfg, device=None) -> Zamba2:
-    return Zamba2(cfg, device, generator)
-
-
 def zamba2_forward(params, cfg, h, positions):
     """h: (B, S, D) embedded tokens -> (B, S, D). S must be a multiple of
     ``cfg.ssm_chunk``."""

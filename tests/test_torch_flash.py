@@ -19,7 +19,8 @@ from repro_torch.kernels.flash_attention import ops
 
 # copied from tests/test_kernels.py
 FLASH_CASES = [
-    # (B, S, H, KV, hd, causal, window, bq, bk)
+    # (B, S, H, KV, hd, causal, window, bq, bk); bq, bk: the TPU kernel's tiles,
+    # passed to the JAX wrapper only
     (1, 128, 4, 4, 64, True, 0, 64, 64),
     (2, 256, 8, 2, 64, True, 0, 128, 64),
     (1, 256, 4, 4, 32, False, 0, 128, 128),
@@ -119,7 +120,7 @@ def f32(x):
 def test_flash_matches_jax(case, dtype, tol, jx):
     B, S, H, KV, hd, causal, win, bq, bk = case
     arrs = inputs(case, dtype)
-    out = flash_attention(*as_torch(arrs, dtype), causal, win, bq, bk)
+    out = flash_attention(*as_torch(arrs, dtype), causal, win)
     assert out.dtype == getattr(torch, dtype) and out.shape == (B, S, H, hd)
     jq, jk, jv = jx.inputs(arrs, dtype)
     kern = jx.flash(jq, jk, jv, causal, win, bq, bk)
@@ -131,9 +132,9 @@ def test_flash_matches_jax(case, dtype, tol, jx):
 @pytest.mark.parametrize("case", RAGGED_CASES + BOUNDARY_CASES + HD80_RAGGED_CASES)
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_flash_ragged_matches_jax_ref(case, dtype, tol, jx):
-    B, S, H, KV, hd, causal, win, bq, bk = case
+    B, S, H, KV, hd, causal, win, _, _ = case
     arrs = inputs(case, dtype, seed=1)
-    out = flash_attention(*as_torch(arrs, dtype), causal, win, bq, bk)
+    out = flash_attention(*as_torch(arrs, dtype), causal, win)
     ref = jx.ref(*jx.inputs(arrs, dtype), causal=causal, window=win)
     np.testing.assert_allclose(f32(out), f32(ref), atol=tol, rtol=tol)
 
@@ -205,10 +206,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 def test_cuda_kernel_matches_plain_version(case, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    B, S, H, KV, hd, causal, win, bq, bk = case
+    B, S, H, KV, hd, causal, win, _, _ = case
     q, k, v = (t.cuda() for t in as_torch(inputs(case, dtype), dtype))
     before = ops.flash_attention.launches
-    out = flash_attention(q, k, v, causal, win, bq, bk)
+    out = flash_attention(q, k, v, causal, win)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
     prev = torch.backends.cuda.matmul.allow_tf32

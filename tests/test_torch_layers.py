@@ -107,7 +107,7 @@ def test_multihead_attn_routes(route, causal, window):
     x = rnd(B, S, D, seed=7)
     pos = np.broadcast_to(np.arange(S), (B, S)).astype(np.int32)
     kw = dict(causal=causal, window=window, rope_theta=1e4,
-              use_flash=route == "flash", flash_block=8,
+              use_flash=route == "flash",
               chunk_q_threshold=8 if route == "chunked" else 8192, chunk_q=4)
     out, (k, v) = tattn.multihead_attn(as_ns(p), torch.from_numpy(x),
                                        torch.from_numpy(pos), return_kv=True, **kw)

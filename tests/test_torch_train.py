@@ -68,7 +68,7 @@ def check_flash_grads(jx, arrs, causal):
     autograd of the plain version and against the JAX wrapper's custom_vjp
     (its Pallas forward in interpret mode) and its plain version."""
     qkv = [torch.from_numpy(a).requires_grad_() for a in arrs]
-    out = flash_ops.flash_attention(*qkv, causal, 0, 64, 64)
+    out = flash_ops.flash_attention(*qkv, causal, 0)
     assert type(out.grad_fn) is flash_ops.FlashAttention._backward_cls
     got = torch.autograd.grad(out.sum(), qkv)
     ref_in = [torch.from_numpy(a).requires_grad_() for a in arrs]
