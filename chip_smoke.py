@@ -4,10 +4,11 @@
 
 Phases; any failure ends the run with a non-zero exit (nothing is caught):
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA source of the serving paths from the checkout (flash
-     attention: the bf16/fp16 tensor-core kernel and the exact fp32 one;
+  2. build every CUDA source from the checkout (flash attention: the
+     bf16/fp16 tensor-core kernel, the exact fp32 one and the backward;
      the SSD scan: the bf16 TF32 tensor-core kernel and the exact fp32
-     one), one nvcc each, all at once, with ptxas's registers and spills;
+     one; AdamW's multi-tensor kernels), one nvcc each, all at once, with
+     ptxas's registers and spills;
   3. each kernel against its plain PyTorch version on the card, at the test
      cases (flash: every dtype route, the tile-boundary cases and head dim
      80; SSD: both routes, the bf16 one also against the CPU model of its
@@ -25,7 +26,9 @@ Phases; any failure ends the run with a non-zero exit (nothing is caught):
      kernel's own output and log-sum-exp) at the test cases, and at the
      train shapes of smollm-360m and tinyllama-1.1b (bf16) also against the
      plain recompute, timed (device ms) beside the plain recompute's ms
-     and its bound;
+     and its bound; AdamW's kernels at smollm-360m's 290-leaf tree against
+     the plain loop (bit for bit over 3 steps, clipping off), timed against
+     their byte bound beside the plain loop's host and device ms;
   4. full-width fp32 prefills on the same seeded weights and inputs, the
      kernels against the plain paths: tinyllama-1.1b (flash), mamba2-2.7b
      (SSD), zamba2-1.2b (full depth, both), qwen2-moe-a2.7b (depth cut 24
@@ -604,6 +607,115 @@ def check_flash_bwd(torch, ops, refs, case, dtype, seed=0, timed=False, reps=10)
     return row
 
 
+def profiled_device_ms(torch, fn):
+    """Device time of one call of ``fn``: the sum of the durations of the
+    device operations the profiler sees in it (the spin of ``device_ms``
+    cannot hide a host that enqueues for longer than it spins)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_device = torch.autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == on_device) / 1e6
+
+
+# the norm kernels' gnorm against global_norm's: fp32 sums of the same
+# squares in another order, a few ulp apart (the tests hold them to this)
+ADAMW_GNORM_RTOL = 1e-6
+
+
+def check_adamw(torch, adamw_ops, get_config):
+    """AdamW's kernels at smollm-360m's tree (290 leaves: bf16 matrices,
+    fp32 norm weights; 361.8 M parameters, fp32 moments): 3 steps of
+    ``adamw_update`` with clipping off against ``adamw_update_plain``, p, m
+    and v equal bit for bit, and each step's gnorm (the norm kernels' on
+    the one side, ``global_norm``'s on the other, of the same gradients)
+    within ``ADAMW_GNORM_RTOL``; then the norm and the update kernels timed
+    alone (as in phase 3) against their byte bound (p and g read and p
+    written, m and v read and written, g read again for the norm; host ms
+    with the leaf table built), the whole ``adamw_update``'s host and
+    device ms, and the plain loop's (device ms from the profiler: the sum
+    of its kernels, which the spin of ``device_ms`` cannot hide behind
+    ~100 ms of host enqueue)."""
+    from repro_torch.models.model import model_class
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, adamw_update_plain
+    cfg = get_config("smollm-360m")
+    a = dict(model_class(cfg)(cfg, torch.device("cuda"), None).state_dict())
+    b = {k: t.clone() for k, t in a.items()}
+    ocfg = AdamWConfig(warmup_steps=0, grad_clip=0.0)
+    sa, sb = adamw_init(a), adamw_init(b)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gnorms = []
+    for _ in range(3):
+        grads = {k: (torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(p.dtype)
+                 for k, p in a.items()}
+        _, sa, ga = adamw_update(grads, a, sa, ocfg)
+        _, sb, gb = adamw_update_plain(grads, b, sb, ocfg)
+        gnorms.append((ga.item(), gb.item()))
+    gnorm_rel = max(abs(x - y) / y for x, y in gnorms)
+    if not gnorm_rel <= ADAMW_GNORM_RTOL:
+        raise AssertionError(f"adamw norm kernels against global_norm: {gnorms}, relative "
+                             f"{gnorm_rel:.3g} (limit {ADAMW_GNORM_RTOL})")
+    differ = {what: sum(not torch.equal(x[k].view(torch.int16 if x[k].element_size() == 2
+                                                  else torch.int32),
+                                        y[k].view(torch.int16 if y[k].element_size() == 2
+                                                  else torch.int32)) for k in x)
+              for what, x, y in (("p", a, b), ("m", sa.m, sb.m), ("v", sa.v, sb.v))}
+    if any(differ.values()):
+        raise AssertionError(f"adamw kernels against the plain loop: leaves differing {differ}")
+    n = sum(p.numel() for p in a.values())
+    nbytes = sum(p.numel() * (2 * p.element_size() + 2 * grads[k].element_size() + 16)
+                 for k, p in a.items())
+    bound_ms = nbytes / yardstick.HBM_BYTES_PER_S * 1e3
+    lr, b1c, b2c = (torch.full((), x, device="cuda") for x in (3e-4, 0.5, 0.5))
+    leaves = [(p, grads[k], sa.m[k], sa.v[k]) for k, p in a.items()]
+    t = adamw_ops.table(leaves)
+
+    def launched():
+        adamw_ops.norm(t)
+        adamw_ops.update(t, None, lr, b1c, b2c, ocfg.b1, ocfg.b2, ocfg.eps, ocfg.weight_decay)
+
+    def kernels():
+        # as adamw_update calls them: the leaf table built anew, then launched
+        tt = adamw_ops.table(leaves)
+        adamw_ops.norm(tt)
+        adamw_ops.update(tt, None, lr, b1c, b2c, ocfg.b1, ocfg.b2, ocfg.eps, ocfg.weight_decay)
+
+    row = {"leaves": len(a), "parameters": n, "bytes": nbytes, "bound_ms": bound_ms,
+           "leaves_differing_no_clip": differ, "gnorms": gnorms, "gnorm_rel_diff": gnorm_rel,
+           "kernels": {"ms": cuda_ms(torch, launched), "device_ms": device_ms(torch, launched),
+                       "host_ms": host_ms(torch, kernels),
+                       "table_host_ms": host_ms(torch, lambda: adamw_ops.table(leaves))},
+           "norm_device_ms": device_ms(torch, lambda: adamw_ops.norm(t)),
+           "kernels_profiled_device_ms": profiled_device_ms(torch, launched),
+           "update": {"host_ms": host_ms(torch, lambda: adamw_update(grads, a, sa, ocfg), 20),
+                      "device_ms": profiled_device_ms(
+                          torch, lambda: adamw_update(grads, a, sa, ocfg))},
+           "plain": {"host_ms": host_ms(torch, lambda: adamw_update_plain(grads, b, sb, ocfg),
+                                        5, warmup=1),
+                     "device_ms": profiled_device_ms(
+                         torch, lambda: adamw_update_plain(grads, b, sb, ocfg))}}
+    row["bound_share_by_device"] = bound_ms / row["kernels"]["device_ms"]
+    print(f"[adamw] smollm-360m tree, {len(a)} leaves, {n} parameters: kernels bit-equal to the "
+          f"plain loop over 3 steps (clipping off), gnorms {gnorms} (largest relative "
+          f"difference {gnorm_rel:.3g}, limit {ADAMW_GNORM_RTOL}); norm + update device "
+          f"{row['kernels']['device_ms']:.4f} ms (norm {row['norm_device_ms']:.4f}; profiled "
+          f"{row['kernels_profiled_device_ms']:.4f}), host {row['kernels']['host_ms']:.4f} ms "
+          f"(the table {row['kernels']['table_host_ms']:.4f}), "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB), "
+          f"{100 * row['bound_share_by_device']:.1f}% of bound by device time; adamw_update "
+          f"host {row['update']['host_ms']:.4f} ms, device {row['update']['device_ms']:.4f}; "
+          f"plain loop host {row['plain']['host_ms']:.4f} ms, device "
+          f"{row['plain']['device_ms']:.4f} ms", flush=True)
+    del a, b, sa, sb, grads, leaves, t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def l2_flushed_ms(torch, fn):
     """``fn``'s device time with L2 emptied before each call: 128 MB (over
     twice the H100's 50 MB L2) written ahead of the start event."""
@@ -686,11 +798,35 @@ K1_BWD = "flash_attention_bwd"
 
 
 def zero(kernels):
-    """Every launch count of ``kernels`` set to 0, K1's backward's too."""
+    """Every launch count of ``kernels`` set to 0, K1's backward's and
+    AdamW's kernels' too."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
     for k in kernels:
         k["counter"].launches = 0
         if hasattr(k["counter"], "bwd_launches"):
             k["counter"].bwd_launches = 0
+    adamw_ops.norm.launches = adamw_ops.update.launches = 0
+
+
+def adamw_counts():
+    """AdamW's kernel launches since ``zero``: {"norm": n, "update": n}."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    return {"norm": adamw_ops.norm.launches, "update": adamw_ops.update.launches}
+
+
+def adamw_want(params, steps, sharded=False):
+    """AdamW's launches for ``steps`` updates of ``params`` (a module): a
+    norm (2 launches up to 512 leaves) and an update (1) a step; a sharded
+    tree keeps ``global_norm`` and takes 2 updates (one for the leaves
+    whose gradient is a ``Partial`` sum, laid out anew); none for a tree
+    off the card, which takes the plain loop."""
+    from repro_torch.kernels.adamw import ops as adamw_ops
+    leaves = list(params.parameters())
+    if not all(p.is_cuda for p in leaves):
+        return {"norm": 0, "update": 0}
+    norm, update = adamw_ops.launches(sum(p.numel() > 0 for p in leaves))
+    return {"norm": 0, "update": 2 * steps} if sharded else {"norm": norm * steps,
+                                                             "update": update * steps}
 
 
 def bwd_counts(kernels):
@@ -995,9 +1131,10 @@ def ckpt_bytes(cfg):
 
 def train_run(torch, train_mod, cfg, kernels, name, **kw):
     """One run of ``train`` with every launch count set to 0 just before and
-    read just after; checks finite losses and gnorms. Returns the result,
-    the forward launches and its numbers (K1's backward kernel calls
-    among them): step time (median of the steps after the
+    read just after; checks finite losses and gnorms, and AdamW's kernel
+    launches (``adamw_want``). Returns the result, the forward launches and
+    its numbers (K1's backward kernel calls and AdamW's launches among
+    them): step time (median of the steps after the
     first, from the log's clock, which each step's loss and gnorm sync),
     tokens/s, peak memory, and per save the time ``save`` held the loop, the
     part of it spent copying to the host, the seconds from its start to the
@@ -1018,7 +1155,7 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
         zero(kernels)
         out = train_mod.train(cfg, log_path=str(log), device="cuda", **TRAIN, **kw)
         torch.cuda.synchronize()
-        launches, bwd = counts(kernels), bwd_counts(kernels)
+        launches, bwd, opt = counts(kernels), bwd_counts(kernels), adamw_counts()
     finally:
         obs.FORCE = False
     (_, rt), = obs.RUNS[n_runs:]
@@ -1048,17 +1185,20 @@ def train_run(torch, train_mod, cfg, kernels, name, **kw):
            "first_step_s": rows[0]["t"], "steps_s": steps,
            "tokens_per_s": TRAIN["batch"] * TRAIN["seq"] / step_s,
            "wall_s": out["wall_s"], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "saves": saves, "launches": launches, "bwd_launches": bwd,
+           "saves": saves, "launches": launches, "bwd_launches": bwd, "adamw_launches": opt,
            "runtime_stats": out["runtime_stats"]}
     print(f"[train] {cfg.name} {name}: {out['steps_run']} steps, losses "
           f"{[round(x, 4) for x in out['losses']]}, gnorms "
           f"{[round(g, 4) for g in num['gnorms']]}, step {step_s:.4f} s (median of "
           f"{[round(x, 4) for x in steps]}; first {rows[0]['t']:.3f} s), "
           f"{num['tokens_per_s']:.1f} tok/s, wall {out['wall_s']:.3f} s, peak "
-          f"{num['peak_gib']:.3f} GiB, launches {launches}, backward {bwd}, saves {saves}, "
-          f"runtime {out['runtime_stats']}")
+          f"{num['peak_gib']:.3f} GiB, launches {launches}, backward {bwd}, adamw {opt}, "
+          f"saves {saves}, runtime {out['runtime_stats']}")
     if not all(map(math.isfinite, out["losses"] + num["gnorms"])):
         raise AssertionError(f"{cfg.name} {name}: a loss or gnorm is not finite")
+    want = adamw_want(out["params"], out["steps_run"])
+    if opt != want:
+        raise AssertionError(f"{cfg.name} {name}: adamw launches {opt}, expected {want}")
     return out, launches, num
 
 
@@ -1182,9 +1322,9 @@ def encoder_train(torch, np, train_mod, Model, cfg, kernels, steps=2):
     tokens only, as the reference's does): ``steps`` of
     ``train_step`` (``Model.loss``, backward, AdamW) on 4 x 1024 seeded frame
     embeddings, with every launch count set to 0 just before and read just
-    after. Checks finite losses and gnorms; returns the launches and its
-    numbers (host clock around each step, which ends in the loss's and
-    gnorm's sync)."""
+    after. Checks finite losses and gnorms, and AdamW's launches; returns
+    the launches and its numbers (host clock around each step, which ends
+    in the loss's and gnorm's sync)."""
     from repro_torch.optim import AdamWConfig, adamw_init
     B, S = TRAIN["batch"], TRAIN["seq"]
     model = Model(cfg)
@@ -1204,18 +1344,21 @@ def encoder_train(torch, np, train_mod, Model, cfg, kernels, steps=2):
         losses.append(loss.item())
         gnorms.append(gnorm.item())
         times.append(time.monotonic() - t0)
-    launches, bwd = counts(kernels), bwd_counts(kernels)
+    launches, bwd, opt = counts(kernels), bwd_counts(kernels), adamw_counts()
     num = {"losses": losses, "gnorms": gnorms, "steps_s": times, "step_s": times[-1],
            "tokens_per_s": B * S / times[-1],
            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
-           "bwd_launches": bwd}
+           "bwd_launches": bwd, "adamw_launches": opt}
     print(f"[train] {cfg.name} encoder ({cfg.n_layers} layers): {steps} steps of "
           f"train_step on {B} x {S} frame embeddings, losses {[round(x, 4) for x in losses]}, "
           f"gnorms {[round(g, 4) for g in gnorms]}, step {times[-1]:.4f} s (first "
           f"{times[0]:.3f} s), {num['tokens_per_s']:.1f} tok/s, peak {num['peak_gib']:.3f} "
-          f"GiB, launches {launches}, backward {bwd}")
+          f"GiB, launches {launches}, backward {bwd}, adamw {opt}")
     if not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"{cfg.name}: a loss or gnorm is not finite")
+    if opt != adamw_want(params, steps):
+        raise AssertionError(f"{cfg.name} encoder: adamw launches {opt}, expected "
+                             f"{adamw_want(params, steps)}")
     del params, opt_state
     torch.cuda.empty_cache()
     return launches, num
@@ -1229,19 +1372,27 @@ DIST_STEPS = 3
 # 3e-6, and most weights keep their value)
 DIST_ADAMW = {"warmup_steps": 0}
 # sharded steps against the unsharded ones at world size 1, where nothing is
-# split, so the two differ only in the order of a few sums. The first step:
-# loss and gradient norm, relative; each parameter, absolute (a gradient
-# near 0 can change sign with the order of its sum, and AdamW's first step
-# moves its weight by up to lr either way); each tensor's update (new minus
-# old) against the unsharded update's 2-norm. The later steps start from
-# parameters that differ by those few values: their loss and gradient norm,
-# relative. The limits stand 5-60x above the gaps measured on the H100
-# (PERF.md), and below what a lost or misplaced update gives.
+# split, so the two differ only in the order of a few sums (the sharded
+# side's DTensor sums, and its ``global_norm`` where the unsharded side takes
+# the AdamW kernels' norm). The first step: loss and gradient norm, relative;
+# each parameter, absolute (a gradient near 0 can change sign with the order
+# of its sum, and AdamW's first step moves its weight by up to lr either way);
+# each tensor's update (new minus old) against the unsharded update's 2-norm.
+# The later steps start from parameters a few bf16 roundings apart, which the
+# steps carry on: their loss and gradient norm, relative. Readings on the
+# H100 over 5 seeds of tinyllama-1.1b and zamba2-1.2b (PERF.md): first
+# step gnorm <= 2.1e-7, parameter <= 3.1e-5, update <= 9.7e-5; later steps
+# loss <= 7.5e-5 and gnorm <= 5.0e-3, of the same size with the plain loop on
+# both sides. The first-step limits stand 3-10x above theirs and below what a
+# leaf's lost or misplaced first update gives (its weights move by about lr =
+# 3e-4). The later ones stand 4x above theirs: they catch steps that diverge,
+# not one leaf's lost update, whose later gaps (one leaf's update dropped at
+# step 1 or 2: loss 2.7e-6-6.8e-5, gnorm 4.5e-4-3.6e-3) lie inside the noise.
 DIST_FIRST_RTOL = 1e-6
 DIST_PARAM_ATOL = 1e-4
 DIST_UPDATE_RTOL = 1e-3
-DIST_LATER_LOSS_RTOL = 1e-4
-DIST_LATER_GNORM_RTOL = 5e-3
+DIST_LATER_LOSS_RTOL = 3e-4
+DIST_LATER_GNORM_RTOL = 2e-2
 
 
 def _step(torch, model, params, batch, opt_state, acfg):
@@ -1258,10 +1409,10 @@ def _step(torch, model, params, batch, opt_state, acfg):
     return loss.detach(), gnorm, grads
 
 
-def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
+def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False, seed=0):
     """``DIST_STEPS`` steps of ``cfg`` unsharded, then the same under
     ``strategy`` on ``mesh`` (``shard_params``, ``mesh_context``), from the
-    same seeded weights and batches. Holds the sharded steps against the
+    same weights and batches of ``seed``. Holds the sharded steps against the
     unsharded ones (every step's loss and gradient norm; the first step's
     parameters and each tensor's update); returns their numbers (the
     launches of the sharded first step) and, with ``keep_grads``, the
@@ -1271,13 +1422,13 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init
     model, acfg = Model(cfg), AdamWConfig(**DIST_ADAMW)
-    batches = [make_batch(torch, np, cfg, TRAIN["batch"], TRAIN["seq"], seed=i)
+    batches = [make_batch(torch, np, cfg, TRAIN["batch"], TRAIN["seq"], seed=1000 * seed + i)
                for i in range(DIST_STEPS)]
     runs, first = {}, {}
     for name in ("unsharded", strategy):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        params = model.init(0, device="cuda")
+        params = model.init(seed, device="cuda")
         init = ({k: p.detach().clone() for k, p in params.named_parameters()}
                 if name == "unsharded" else None)
 
@@ -1300,7 +1451,7 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
             losses.append(float(full(loss)))
             gnorms.append(float(gnorm))
             if i == 0:
-                launches, bwd = counts(kernels), bwd_counts(kernels)
+                launches, bwd, opt = counts(kernels), bwd_counts(kernels), adamw_counts()
                 after = {k: full(p.detach()) for k, p in params.named_parameters()}
                 if name == "unsharded":
                     first["after"] = {k: t.clone() for k, t in after.items()}
@@ -1324,7 +1475,8 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
         runs[name] = {"losses": losses, "gnorms": gnorms, "steps_s": times,
                       "later_step_s": statistics.median(times[1:]),
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                      "launches": launches, "bwd_launches": bwd}
+                      "launches": launches, "bwd_launches": bwd, "adamw_launches": opt,
+                      "adamw_want": adamw_want(params, 1, sharded=name != "unsharded")}
         del params, opt_state
     sh, un = runs[strategy], runs["unsharded"]
     if not max(first["update_norm"].values()) > 0:
@@ -1343,7 +1495,8 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
           f"({sh['later_step_s'] / un['later_step_s']:.3f}x), first {sh['steps_s'][0]:.3f} s "
           f"vs {un['steps_s'][0]:.3f} s; peak {sh['peak_gib']:.3f} vs {un['peak_gib']:.3f} "
           f"GiB; launches {sh['launches']} vs {un['launches']}, backward "
-          f"{sh['bwd_launches']} vs {un['bwd_launches']}")
+          f"{sh['bwd_launches']} vs {un['bwd_launches']}, adamw {sh['adamw_launches']} vs "
+          f"{un['adamw_launches']}")
     if not (d_loss[0] <= DIST_FIRST_RTOL and d_gnorm[0] <= DIST_FIRST_RTOL
             and param_diff <= DIST_PARAM_ATOL and update_err[worst] <= DIST_UPDATE_RTOL
             and max(d_loss[1:]) <= DIST_LATER_LOSS_RTOL
@@ -1354,9 +1507,83 @@ def dist_train_step(torch, np, cfg, kernels, mesh, strategy, keep_grads=False):
         raise AssertionError(f"{cfg.name} {strategy}: launches {sh['launches']}, backward "
                              f"{sh['bwd_launches']} vs {un['launches']}, "
                              f"{un['bwd_launches']} unsharded")
+    for what, run in (("sharded", sh), ("unsharded", un)):
+        if run["adamw_launches"] != run["adamw_want"]:
+            raise AssertionError(f"{cfg.name} {what} step 1: adamw launches "
+                                 f"{run['adamw_launches']}, expected {run['adamw_want']}")
     return {"strategy": strategy, "sharded": sh, "unsharded": un, "loss_rel_diff": d_loss,
             "gnorm_rel_diff": d_gnorm, "max_param_diff": param_diff,
             "max_update_rel_diff": [worst, update_err[worst]]}, first.get("grads")
+
+
+def dist_opt_rules(torch, np, cfg, mesh, strategy="dp_fsdp", steps=2):
+    """AdamW on ``cfg``'s gradients under ``strategy`` on ``mesh``, its
+    moments laid out by the strategy's ``OPT_RULES`` (every parameter and
+    gradient laid out anew for the update): ``steps`` updates through the
+    kernels against the plain loop from the same weights and gradients.
+    Holds p, m, v and gnorm equal bit for bit (both sides take
+    ``global_norm``), and the memory each update adds at its peak, the
+    kernels' no more than the loop's (``_groups`` keeps the copies alive at
+    once within the loop's fp32 copy of the largest leaf)."""
+    from repro_torch.distributed import OPT_RULES, STRATEGIES, mesh_context, place, shard_params
+    from repro_torch.distributed.sharding import place_tensor
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_update, adamw_update_plain
+    from repro_torch.optim.adamw import AdamWState, _groups
+    model, acfg = Model(cfg), AdamWConfig(**DIST_ADAMW)
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    sides, peaks, gnorms = {}, {}, {}
+    with mesh_context(mesh, STRATEGIES[strategy]):
+        axes = model.logical_axes(params)
+        place(params, shard_params(params, axes))
+        model.loss(params, make_batch(torch, np, cfg, TRAIN["batch"], TRAIN["seq"])).backward()
+        named = dict(params.named_parameters())
+        grads = {k: p.grad for k, p in named.items()}
+        rules = shard_params(params, axes, rules=OPT_RULES[strategy])
+        m = {k: place_tensor(torch.zeros(p.shape, device="cuda"), rules[k])
+             for k, p in named.items()}
+        groups = [len(g) for g in _groups(grads, named, m)]
+        trees = {"kernels": named, "plain": {k: t.detach().clone() for k, t in named.items()}}
+        for name, update in (("kernels", adamw_update), ("plain", adamw_update_plain)):
+            p = trees[name]
+            state = AdamWState({k: t.clone() for k, t in m.items()},
+                               {k: t.clone() for k, t in m.items()},
+                               torch.zeros((), dtype=torch.int32, device="cuda"))
+            zero([])
+            peaks[name], gnorms[name] = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                _, state, gnorm = update(grads, p, state, acfg)
+                torch.cuda.synchronize()
+                peaks[name].append((torch.cuda.max_memory_allocated() - base) / 2**20)
+                gnorms[name].append(gnorm.item())
+            sides[name] = (p, state, adamw_counts())
+    (pk, sk, opt), (pp, sp, _) = sides["kernels"], sides["plain"]
+    differ = {what: sum(not torch.equal(x[k].to_local().view(torch.uint8),
+                                        y[k].to_local().view(torch.uint8)) for k in x)
+              for what, x, y in (("p", pk, pp), ("m", sk.m, sp.m), ("v", sk.v, sp.v))}
+    moved = sum(tuple(m[k].placements) != tuple(t.placements) for k, t in named.items())
+    print(f"[dist] {cfg.name} AdamW under {strategy} with OPT_RULES moments ({moved} of "
+          f"{len(named)} leaves laid out otherwise than their parameter) on mesh "
+          f"{tuple(mesh.mesh.shape)}, {steps} steps: kernels against the plain loop, leaves "
+          f"differing {differ}, gnorms {gnorms['kernels']} vs {gnorms['plain']}; memory "
+          f"added at the peak of each update {peaks['kernels']} MiB vs {peaks['plain']} MiB; "
+          f"update groups {groups}, adamw launches {opt}")
+    if any(differ.values()) or gnorms["kernels"] != gnorms["plain"]:
+        raise AssertionError(f"{cfg.name} {strategy}: kernels and plain loop differ")
+    if max(peaks["kernels"]) > max(peaks["plain"]):
+        raise AssertionError(f"{cfg.name} {strategy}: the kernels' update added "
+                             f"{max(peaks['kernels'])} MiB, the loop's {max(peaks['plain'])}")
+    if opt != {"norm": 0, "update": steps * len(groups)}:
+        raise AssertionError(f"{cfg.name} {strategy}: adamw launches {opt}, expected "
+                             f"{steps * len(groups)} updates")
+    del params, named, grads, m, sides, trees, p, state, pk, sk, pp, sp
+    torch.cuda.empty_cache()
+    return {"strategy": strategy, "leaves_moved": moved, "leaves_differing": differ,
+            "gnorms": gnorms, "peak_added_mib": peaks, "groups": groups, "adamw_launches": opt}
 
 
 def dist_moe_layer(torch, cfg, mesh):
@@ -1457,6 +1684,7 @@ def distributed_phase(torch, np, get_config, kernels):
                                  f"{nums[dense.name]['sharded']['launches']}, expected {want}")
         nums["compressed_grads"] = dist_compressed(torch, grads)
         del grads
+        nums["tinyllama-1.1b/dp_fsdp_opt_rules"] = dist_opt_rules(torch, np, dense, mesh)
         zamba = get_config("zamba2-1.2b").replace(use_flash=True, use_ssd_kernel=True)
         sites = len(range(0, zamba.n_layers, zamba.attn_every))
         nums[zamba.name], _ = dist_train_step(torch, np, zamba, kernels, mesh, "tp_fsdp")
@@ -1795,6 +2023,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (attention_bwd_ref, attention_lse_ref,
                                                      attention_ref, ops)
+    from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ssd_scan_ref, ssd_scan_tf32_ref
     from repro_torch.checkpoint import CheckpointManager
@@ -1821,7 +2050,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # 2. build
-    sources = [*ops.SOURCES, *ssd_ops.SOURCES]
+    sources = [*ops.SOURCES, *ssd_ops.SOURCES, *adamw_ops.SOURCES]
     print(f"[build] {len(sources)} sources built in {build_all(sources):.1f} s")
 
     # 3. kernels against their plain versions
@@ -1840,6 +2069,7 @@ def main() -> int:
     bwd_rows = {arch: {"case": case, **check_flash_bwd(torch, ops, bwd_refs, case, "bfloat16",
                                                        timed=True)}
                 for arch, case in BWD_TRAIN_CASES.items()}
+    adamw_row = check_adamw(torch, adamw_ops, get_config)
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float32", timed=True)
     check_flash(torch, ops, attention_ref, SLICE_CASE, "float16", timed=True)
     # each kernel's numbers at the main paths' shapes, for the kernels line
@@ -2000,6 +2230,18 @@ def main() -> int:
                       for arch in ("tinyllama-1.1b", "zamba2-1.2b")})
     bwd_train.update({name: n["bwd_launches"][K1_BWD] for name, n in wide_nums.items()
                       if "bwd_launches" in n})
+    # AdamW's kernel launches on each train path, each held to adamw_want
+    adamw_train = {f"{dense.name} {run}": train_nums[dense.name][run]["adamw_launches"]
+                   for run in ("io_aware", "resume", "baseline")}
+    adamw_train.update({name: train_nums[name]["adamw_launches"]
+                        for name in (ssm.name, hybrid.name, moe.name, hubert.name)})
+    adamw_train.update({f"{arch} {side} step 1": dist_nums[arch][side]["adamw_launches"]
+                        for arch in ("tinyllama-1.1b", "zamba2-1.2b")
+                        for side in ("sharded", "unsharded")})
+    adamw_train["tinyllama-1.1b dp_fsdp OPT_RULES, 2 updates"] = dist_nums[
+        "tinyllama-1.1b/dp_fsdp_opt_rules"]["adamw_launches"]
+    adamw_train.update({name: n["adamw_launches"] for name, n in wide_nums.items()
+                        if "adamw_launches" in n})
     print(json.dumps({"train": train_nums, "families": family_nums,
                       "distributed": dist_nums, "dryrun": dryrun_nums,
                       "shapes": shape_nums, "wide": wide_nums, "flash_bwd": bwd_rows}))
@@ -2029,7 +2271,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention/ops.py:36",
          "train_launches": train_nums[dense.name]["io_aware"]["bwd_launches"][K1_BWD],
          "train_path": train_paths[K1][1],
-         "train_path_launches": bwd_train, "shapes": bwd_rows}]}))
+         "train_path_launches": bwd_train, "shapes": bwd_rows},
+        {"name": "adamw", "route": "cuda", "source": str(adamw_ops.SOURCE.relative_to(ROOT)),
+         "replaces": "none (src/repro/optim/adamw.py is plain jnp)",
+         "train_launches": train_nums[dense.name]["io_aware"]["adamw_launches"],
+         "train_path": train_paths[K1][1], "train_path_launches": adamw_train,
+         "smollm-360m": adamw_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

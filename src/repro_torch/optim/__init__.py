@@ -1,4 +1,4 @@
-from .adamw import (AdamWConfig, AdamWState, adamw_init, adamw_update, global_norm,
-                    schedule)
+from .adamw import (AdamWConfig, AdamWState, adamw_init, adamw_update, adamw_update_plain,
+                    global_norm, schedule)
 from .compression import (compressed_grads, compressed_psum, dequantize_int8,
                           quantize_int8)

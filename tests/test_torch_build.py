@@ -137,9 +137,10 @@ def test_other_ssd_dtypes_raise(dtype):
 
 
 def test_chip_smoke_builds_every_source():
-    """chip_smoke.py builds both flash routes and both SSD routes."""
+    """chip_smoke.py builds both flash routes, both SSD routes and AdamW's
+    kernels."""
     text = (KERNELS.parents[2] / "chip_smoke.py").read_text()
-    assert "sources = [*ops.SOURCES, *ssd_ops.SOURCES]" in text
+    assert "sources = [*ops.SOURCES, *ssd_ops.SOURCES, *adamw_ops.SOURCES]" in text
     assert len(ssd_ops.SOURCES) == len(set(ssd_ops.SOURCES)) == 2
     assert {s.name for s in ssd_ops.SOURCES} == {"ssd_fwd_sm90.cu", "ssd_fwd.cu"}
 
