@@ -16,7 +16,7 @@ import torch
 @dataclass
 class ModelConfig:
     name: str
-    family: str                 # dense | moe | ssm | hybrid | encoder | vlm
+    family: str                 # dense | moe | ssm | hybrid | moe_hybrid | encoder | vlm
     n_layers: int
     d_model: int
     n_heads: int = 0
@@ -52,6 +52,13 @@ class ModelConfig:
     use_flash: bool = False
     use_ssd_kernel: bool = False
     decode_batch_replicated: bool = False
+    # port-only (granite-4.0-h-small, family moe_hybrid); the defaults keep
+    # every other config as the JAX package has it
+    layer_types: tuple = ()          # per layer "mamba" | "attention"
+    attn_scale: float = 0.0          # softmax scale of q.k; 0 -> 1/sqrt(head_dim)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0      # the logits are divided by it
 
     # which shape cells run (DESIGN.md §6: skips are per-spec, documented)
     supports_decode: bool = True
@@ -69,6 +76,8 @@ class ModelConfig:
             n += emb * (1 if self.tie_embeddings else 2)
         else:
             n += self.vocab_size * D  # classifier head
+        if self.family == "moe_hybrid":
+            return n + self._moe_hybrid_layers(self.n_experts)
         if self.family in ("ssm", "hybrid"):
             d_in = self.ssm_expand * D
             H = d_in // self.ssm_headdim
@@ -92,8 +101,29 @@ class ModelConfig:
         n += (attn + ffn) * L
         return n
 
+    def _moe_hybrid_layers(self, experts: int) -> int:
+        """The layers of the moe_hybrid family, each expert layer holding
+        ``experts`` routed experts' weights (the router always all of them)."""
+        D = self.d_model
+        d_in = self.ssm_expand * D
+        H = d_in // self.ssm_headdim
+        N = self.ssm_state
+        mamba = D * (2 * d_in + 2 * N + H) + d_in * D + 4 * (d_in + 2 * N) \
+            + (d_in + 2 * N) + 3 * H + d_in
+        hd = self.head_dim or D // self.n_heads
+        attn = D * (self.n_heads + 2 * self.n_kv_heads) * hd + self.n_heads * hd * D
+        moe = 3 * D * self.moe_d_ff * experts + 3 * D * self.shared_d_ff \
+            + D * self.n_experts
+        n_attn = sum(t == "attention" for t in self.layer_types[:self.n_layers])
+        return (self.n_layers - n_attn) * mamba + n_attn * attn \
+            + self.n_layers * (moe + 2 * D)
+
     def active_param_count(self) -> int:
         """Active params per token (MoE: top-k experts only)."""
+        if self.family == "moe_hybrid":
+            n = self.param_count()
+            return n - self._moe_hybrid_layers(self.n_experts) \
+                + self._moe_hybrid_layers(self.n_experts_per_tok)
         if not self.n_experts:
             return self.param_count()
         dense = self.replace(n_experts=0, d_ff=0)

@@ -121,10 +121,10 @@ def launch_plan(hd):
     return w, -(-w // WIDE_BLOCK)
 
 
-def run_padded(fn, tensors, *args):
+def run_padded(fn, tensors, *args, scale=None):
     """``fn(*tensors, *args, scale)`` at the kernel width of the head dim (the
     last axis of every tensor): each tensor zero-padded on the last axis up to
-    ``launch_plan``'s width, ``scale`` = 1/sqrt(true head dim), and each of
+    ``launch_plan``'s width, ``scale`` by default 1/sqrt(true head dim), and each of
     ``fn``'s outputs (one tensor or a tuple) sliced back. Forward: q, k, v ->
     out; backward: q, k, v, o, dO -> dq, dk, dv, the ``lse`` among ``args``.
     Zero columns add 0 to q.k, to dO.V^T and to rowsum(dO * O), and give zero
@@ -133,19 +133,19 @@ def run_padded(fn, tensors, *args):
     pad = launch_plan(hd)[0] - hd
     if pad:
         tensors = [torch.nn.functional.pad(t, (0, pad)) for t in tensors]
-    out = fn(*tensors, *args, 1.0 / math.sqrt(hd))
+    out = fn(*tensors, *args, 1.0 / math.sqrt(hd) if scale is None else scale)
     if not pad:
         return out
     cut = lambda t: t[..., :hd].contiguous()
     return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
 
 
-def _forward(q, k, v, causal, window, with_lse=False):
+def _forward(q, k, v, causal, window, with_lse=False, scale=None):
     """(out, lse): the plain version on the CPU, else the kernel; ``lse``
     is each row's log-sum-exp, (B, H, S) fp32, written by the kernel only
-    ``with_lse``, else None."""
+    ``with_lse``, else None. ``scale`` multiplies q.k (None: 1/sqrt(hd))."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window), None
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale), None
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     route(q.dtype)
@@ -155,7 +155,7 @@ def _forward(q, k, v, causal, window, with_lse=False):
     if with_lse:
         B, S, H, _ = q.shape
         lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    return run_padded(partial(_launch, lse=lse), (q, k, v), causal, window), lse
+    return run_padded(partial(_launch, lse=lse), (q, k, v), causal, window, scale=scale), lse
 
 
 def _launch(q, k, v, causal, window, scale, lse=None):
@@ -204,10 +204,10 @@ class FlashAttention(torch.autograd.Function):
     saved q, k, v and differentiated (the reference's ``_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, with_lse):
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal, window, with_lse, scale):
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         with torch.no_grad():
-            out, lse = _forward(q, k, v, causal, window, with_lse)
+            out, lse = _forward(q, k, v, causal, window, with_lse, scale)
         ctx.save_for_backward(q, k, v, *(() if lse is None else (out, lse)))
         return out
 
@@ -217,22 +217,23 @@ class FlashAttention(torch.autograd.Function):
         if len(saved) == 5:
             q, k, v, out, lse = saved
             dq, dk, dv = run_padded(_launch_bwd, (q, k, v, out, g.contiguous()), lse,
-                                    ctx.causal, ctx.window)
-            return dq, dk, dv, None, None, None
+                                    ctx.causal, ctx.window, scale=ctx.scale)
+            return dq, dk, dv, None, None, None, None
         qkv = [t.detach().requires_grad_() for t in saved]
         with torch.enable_grad():
-            out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window)
+            out = attention_ref(*qkv, causal=ctx.causal, window=ctx.window, scale=ctx.scale)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, causal=True, window=0):
+def flash_attention(q, k, v, causal=True, window=0, scale=None):
     """q: (B,S,H,hd); k, v: (B,S,KV,hd). Returns (B,S,H,hd) in q's dtype,
-    differentiable in q, k and v."""
+    differentiable in q, k and v. ``scale`` multiplies q.k (None:
+    1/sqrt(hd))."""
     _check(q, k, v)
     with_lse = (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
                 and bwd_kernel_takes(q))
-    return FlashAttention.apply(q, k, v, causal, window, with_lse)
+    return FlashAttention.apply(q, k, v, causal, window, with_lse, scale)
 
 
 #: forward kernel launches since the count was last set to 0 (CPU calls not

@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from ..configs import ARCHS, get_config, get_smoke_config
+from ..configs import PORT_ARCHS, get_config, get_smoke_config
 from ..core import Cluster, IORuntime, RealBackend, StorageDevice, WorkerNode, io, task
 from ..device import resolve_device
 from ..models import Model
@@ -114,7 +114,7 @@ def serve(cfg, *, n_requests=8, prompt_len=32, max_new=16, batch=4,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="tinyllama-1.1b")
+    ap.add_argument("--arch", choices=PORT_ARCHS, default="tinyllama-1.1b")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--requests", type=int, default=8)

@@ -65,25 +65,29 @@ def _mask(q_pos, k_pos, causal: bool, window: int):
     return m
 
 
-def _attend(qg, k, v, mask, dtype):
+def _scaled(scores, hd, scale):
+    """q.k times ``scale``, or over sqrt(hd) when it is None."""
+    return scores / math.sqrt(hd) if scale is None else scores * scale
+
+
+def _attend(qg, k, v, mask, dtype, scale=None):
     """qg (B,Sq,KV,G,hd), k/v (B,Sk,KV,hd), mask (B,Sq,Sk) -> (B,Sq,KV,G,hd)."""
-    hd = k.shape[-1]
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k) / math.sqrt(hd)
+    scores = _scaled(torch.einsum("bskgh,btkh->bkgst", qg, k), k.shape[-1], scale)
     scores = torch.where(mask[:, None, None], scores.float(), -1e9)
     w = torch.softmax(scores, dim=-1).to(dtype)
     return torch.einsum("bkgst,btkh->bskgh", w, v)
 
 
-def _dense_attn(q, k, v, positions, causal, window):
+def _dense_attn(q, k, v, positions, causal, window, scale=None):
     """Materialises the full (S, S) score matrix — short sequences only."""
     B, S, KV, hd = k.shape
     H = q.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd)
     mask = _mask(positions, positions, causal, window)      # (B, S, S)
-    return _attend(qg, k, v, mask, q.dtype).reshape(B, S, H, hd)
+    return _attend(qg, k, v, mask, q.dtype, scale).reshape(B, S, H, hd)
 
 
-def _chunked_attn(q, k, v, positions, causal, window, chunk_q):
+def _chunked_attn(q, k, v, positions, causal, window, chunk_q, scale=None):
     """Loop over query chunks: peak score temp is (B,KV,G,Qc,S) instead of
     (B,KV,G,S,S)."""
     B, S, KV, hd = k.shape
@@ -93,27 +97,30 @@ def _chunked_attn(q, k, v, positions, causal, window, chunk_q):
     for c0 in range(0, S, chunk_q):
         pc = positions[:, c0:c0 + chunk_q]
         mask = _mask(pc, positions, causal, window)         # (B, Qc, S)
-        outs.append(_attend(qg[:, c0:c0 + chunk_q], k, v, mask, q.dtype))
+        outs.append(_attend(qg[:, c0:c0 + chunk_q], k, v, mask, q.dtype, scale))
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 
 def multihead_attn(p, x, positions, *, causal=True, window=0, rope_theta=1e4,
-                   use_flash=False, chunk_q_threshold=8192, chunk_q=1024, return_kv=False):
+                   use_flash=False, chunk_q_threshold=8192, chunk_q=1024, return_kv=False,
+                   rope=True, scale=None):
     """x: (B, S, D) -> (B, S, D_out), ``D_out = p.o.shape[-1]``; with
     ``return_kv`` also the roped K and the V of this call, (B, S, KV, hd)
-    each, for the prefill cache fill."""
+    each, for the prefill cache fill. ``rope=False``: no position embedding
+    (NoPE); ``scale`` multiplies q.k (None: 1/sqrt(hd))."""
     B, S, _ = x.shape
-    q = apply_rope(_project(x, p.q), positions, rope_theta)
-    k = apply_rope(_project(x, p.k), positions, rope_theta)
+    q, k = _project(x, p.q), _project(x, p.k)
+    if rope:
+        q, k = apply_rope(q, positions, rope_theta), apply_rope(k, positions, rope_theta)
     v = _project(x, p.v)
 
     def attend(q, k, v, positions):
         if use_flash:
             return flash_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                             causal, window)
+                                             causal, window, scale)
         if S >= chunk_q_threshold and S % chunk_q == 0:
-            return _chunked_attn(q, k, v, positions, causal, window, chunk_q)
-        return _dense_attn(q, k, v, positions, causal, window)
+            return _chunked_attn(q, k, v, positions, causal, window, chunk_q, scale)
+        return _dense_attn(q, k, v, positions, causal, window, scale)
 
     if isinstance(q, DTensor):
         # under a mesh: on each rank's batch and heads, as XLA partitions the
@@ -160,22 +167,32 @@ def cache_capacity(seq_len: int, window: int) -> int:
     return min(seq_len, window) if window else seq_len
 
 
-def _decode_attend(q, k, v, ck, cv, slot_pos, pos: int, window: int, heads=slice(None)):
+def _decode_attend(q, k, v, ck, cv, slot_pos, pos, window: int, heads=slice(None),
+                   scale=None):
     """q (B,H,hd), k/v (B,KV,hd) of the token at ``pos``: k and v written
     into the caches ``ck``/``cv`` (B,C,KV,hd) and ``slot_pos`` (C,) in place,
-    then q attends over the KV heads ``heads`` of them. Returns (B, H, hd)."""
+    then q attends over the KV heads ``heads`` of them. Returns (B, H, hd).
+    ``pos`` is an int, or a (1,) int64 tensor on the device that no host
+    code reads (a step a CUDA graph replays): the same writes, by index."""
     B, H, hd = q.shape
     C = ck.shape[1]
     slot = pos % max(C, 1) if window else pos
-    kv_slot = min(max(slot, 0), C - 1)
-    ck[:, kv_slot] = k
-    cv[:, kv_slot] = v
-    if 0 <= slot < C:
-        slot_pos[slot] = pos
+    if isinstance(pos, torch.Tensor):
+        kv_slot = slot.clamp(0, C - 1)
+        ck.index_copy_(1, kv_slot, k[:, None])
+        cv.index_copy_(1, kv_slot, v[:, None])
+        slot_pos.index_copy_(0, kv_slot, torch.where(slot < C, pos, slot_pos[kv_slot])
+                             .to(slot_pos.dtype))
+    else:
+        kv_slot = min(max(slot, 0), C - 1)
+        ck[:, kv_slot] = k
+        cv[:, kv_slot] = v
+        if 0 <= slot < C:
+            slot_pos[slot:slot + 1].fill_(pos)  # a fill on the device, no copy from the host
     ck, cv = ck[:, :, heads], cv[:, :, heads]
     KV = ck.shape[2]
     qg = q.reshape(B, KV, H // KV, hd)
-    scores = torch.einsum("bkgh,bckh->bkgc", qg, ck) / math.sqrt(hd)
+    scores = _scaled(torch.einsum("bkgh,bckh->bkgc", qg, ck), hd, scale)
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         valid = valid & (slot_pos > pos - window)
@@ -184,9 +201,12 @@ def _decode_attend(q, k, v, ck, cv, slot_pos, pos: int, window: int, heads=slice
     return torch.einsum("bkgc,bckh->bkgh", w, cv).reshape(B, H, hd)
 
 
-def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
-    """x: (B, D) one new token at position ``pos``. Returns (out (B, D_out),
-    cache), ``D_out = p.o.shape[-1]``. Rolling write when window is set.
+def decode_attn(p, x, cache: KVCache, pos, *, window=0, rope_theta=1e4, rope=True,
+                scale=None):
+    """x: (B, D) one new token at position ``pos`` (with no ``rope``, an int
+    or a device tensor as ``_decode_attend`` takes). Returns (out (B, D_out),
+    cache), ``D_out = p.o.shape[-1]``. Rolling write when window is set;
+    ``rope`` and ``scale`` as in ``multihead_attn``.
 
     The cache is updated in place (the reference returns a new one): this
     saves a copy of the whole cache per layer and step. With no window and
@@ -200,12 +220,14 @@ def decode_attn(p, x, cache: KVCache, pos: int, *, window=0, rope_theta=1e4):
     they are whole, a rank's query heads may still split and read their own
     KV heads (``attention_specs``)."""
     B = x.shape[0]
-    pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(_project(x, p.q)[:, None], pos_b, rope_theta)[:, 0]
-    k = apply_rope(_project(x, p.k)[:, None], pos_b, rope_theta)[:, 0]
+    q, k = _project(x, p.q), _project(x, p.k)
+    if rope:
+        pos_b = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q[:, None], pos_b, rope_theta)[:, 0]
+        k = apply_rope(k[:, None], pos_b, rope_theta)[:, 0]
     v = _project(x, p.v)
 
-    attend = functools.partial(_decode_attend, pos=pos, window=window)
+    attend = functools.partial(_decode_attend, pos=pos, window=window, scale=scale)
     if any(isinstance(t, DTensor) for t in (q, *cache)):
         mesh = next(t.device_mesh for t in (q, *cache) if isinstance(t, DTensor))
         bax, _, hax, _ = spec_of(cache.k)

@@ -204,11 +204,31 @@ def _shapes(p):
     return d_inner, H, d_inner // H, p.in_bc.shape[1] // 2
 
 
-def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
-    """u: (B, S, D) -> (B, S, D); returns (out, final_state)."""
+def _gated_norm(y, z, w, gate_first):
+    """The reference's ``rmsnorm(y) * silu(z)``, or with ``gate_first`` the
+    published Mamba2's ``rmsnorm(y * silu(z))`` (over all channels: one
+    group)."""
+    if gate_first:
+        return rmsnorm(y * F.silu(z), w)
+    return rmsnorm(y, w) * F.silu(z)
+
+
+def _window(t, K):
+    """The last K-1 positions of t (B, S, C), zeros before the first."""
+    S = t.shape[1]
+    return F.pad(t[:, max(0, S - K + 1):], (0, 0, max(0, K - 1 - S), 0))
+
+
+def mamba2_forward(p, u, *, chunk=256, use_kernel=False, gate_first=False, windows=False):
+    """u: (B, S, D) -> (B, S, D); returns (out, final_state), or with
+    ``windows`` (out, a ``MambaCache`` of the last K-1 conv inputs and the
+    final state), from which decode continues the prompt."""
     Bsz, S, _ = u.shape
     d_inner, H, Pd, N = _shapes(p)
     z, x, bc, dt = (linear(u, w) for w in (p.in_z, p.in_x, p.in_bc, p.in_dt))
+    if windows:
+        K = p.conv_x.shape[0]
+        conv_x, conv_bc = _window(x, K), _window(bc, K)
     x = unshard_unless_divides(_causal_conv(x, p.conv_x, p.conv_x_b), -1, H)
     x = x.reshape(Bsz, S, H, Pd)
     bc = _causal_conv(bc, p.conv_bc, p.conv_bc_b)
@@ -216,8 +236,10 @@ def mamba2_forward(p, u, *, chunk=256, use_kernel=False):
     dt = F.softplus(dt.float() + p.dt_bias)
     y, h_last = ssd_chunked(x, dt, Bm, Cm, p.A_log, p.D, chunk, use_kernel=use_kernel)
     y = y.reshape(Bsz, S, d_inner)
-    y = rmsnorm(y, p.norm_w) * F.silu(z)
-    return linear(y, p.out_proj), h_last
+    out = linear(_gated_norm(y, z, p.norm_w, gate_first), p.out_proj)
+    if windows:
+        return out, MambaCache(conv_x, conv_bc, h_last)
+    return out, h_last
 
 
 def ssm_layer(lp, h, cfg):
@@ -255,12 +277,13 @@ def _on_cache_shards(fn, cache_t, in_specs, out_spec):
     return shard_map(fn, cache_t.device_mesh, in_specs + (spec_of(cache_t),), out_spec)
 
 
-def mamba2_decode(p, u, cache: MambaCache):
+def mamba2_decode(p, u, cache: MambaCache, gate_first=False):
     """u: (B, D) single token. Returns (out (B, D), cache). Unlike the
     reference, which returns a new cache, this updates ``cache``'s tensors
     in place (the conv windows shift by one token, ``h`` takes the new
     state) and returns it. Under a mesh the conv and the recurrence run on
-    each rank's shards of the cache, as it is laid out."""
+    each rank's shards of the cache, as it is laid out. ``gate_first`` as
+    in ``mamba2_forward``."""
     Bsz, _ = u.shape
     d_inner, H, Pd, N = _shapes(p)
     z, x, bc, dt = (linear(u, w) for w in (p.in_z, p.in_x, p.in_bc, p.in_dt))
@@ -280,5 +303,4 @@ def mamba2_decode(p, u, cache: MambaCache):
     dt = F.softplus(dt.float() + p.dt_bias)                          # (B,H)
     y = ssm(x, bc[..., :N].float(), bc[..., N:].float(), dt, p.A_log, p.D, cache.h)
     y = y.reshape(Bsz, d_inner).to(u.dtype)
-    y = rmsnorm(y, p.norm_w) * F.silu(z)
-    return linear(y, p.out_proj), cache
+    return linear(_gated_norm(y, z, p.norm_w, gate_first), p.out_proj), cache

@@ -1,6 +1,8 @@
 """Uniform model facade: init / loss / prefill / decode_step / encode.
 Mirror of ``repro.models.model`` for the transformer families (dense, MoE,
-encoder, VLM), the pure-SSM family (mamba2) and the hybrid family (zamba2).
+encoder, VLM), the pure-SSM family (mamba2) and the hybrid family (zamba2);
+beside them the port-only ``moe_hybrid`` family (granite-4.0-h-small,
+``granite_hybrid.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from ..distributed import shard_activation
 from ..distributed.sharding import assign, place_state
 from ..spans import span
 from .attention import KV_CACHE_AXES
+from .granite_hybrid import (GraniteHybrid, granite_decode_step, granite_init_state,
+                             granite_loss, granite_prefill)
 from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
 from .mamba2 import (MAMBA_CACHE_AXES, MambaCache, SSMLayer, mamba2_decode, mamba2_forward,
@@ -174,6 +178,9 @@ FAMILIES = {
     "hybrid": Family(Zamba2, hybrid_loss, hybrid_prefill, hybrid_decode_step,
                      HybridState(MAMBA_CACHE_AXES, KV_CACHE_AXES, ()),
                      lambda cfg, b, n, dev: zamba2_init_state(cfg, b, n, cfg.dtype, dev)._replace(pos=n)),
+    "moe_hybrid": Family(GraniteHybrid, granite_loss, granite_prefill, granite_decode_step,
+                         HybridState(MAMBA_CACHE_AXES, KV_CACHE_AXES, ()),
+                         lambda cfg, b, n, dev: granite_init_state(cfg, b, n, dev)._replace(pos=n)),
 }
 
 
@@ -196,7 +203,7 @@ class Model:
         self.cfg = cfg
         self.family = family(cfg)
 
-    def init(self, seed: int = 0, device=None) -> Transformer | SSM | Zamba2:
+    def init(self, seed: int = 0, device=None) -> Transformer | SSM | Zamba2 | GraniteHybrid:
         """Weights drawn from ``torch.Generator(device).manual_seed(seed)``
         (not the JAX init's numbers: ``repro_torch.convert`` brings those)."""
         device = resolve_device(device)

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN (mixtral-style top-k routed + qwen-style shared
 experts) with sort-based token dispatch and capacity dropping. Mirror of
-``repro.models.moe``.
+``repro.models.moe``; beside it a dropless dispatch (``dropless_ffn``,
+port-only) for the models published without a capacity.
 
 Dispatch runs *locally per data shard* under a mesh with a ``model`` axis
 (``distributed.sharding.shard_map``, the reference's ``shard_map`` on
@@ -30,6 +31,7 @@ from torch import nn
 
 from ..distributed.sharding import (batch_axes, current_mesh, current_rules, mesh_shape,
                                     shard_map, spec_entry)
+from ..spans import span
 from .layers import MLP, _init, mlp_apply
 
 
@@ -124,6 +126,49 @@ def _dispatch_ffn(p, xt, n_top: int, capacity_factor: float):
     return y, aux
 
 
+def dropless_ffn(p, xt, n_top: int):
+    """xt: (T, D) tokens. Returns (T, D) in the experts' dtype, every one of
+    the T·k assignments computed: no capacity and nothing dropped.
+
+    Each token goes to the ``n_top`` experts of largest fp32 router logit,
+    weighted by the softmax over those logits (the renormalised top-k of the
+    full softmax). The assignments are sorted by expert, stably; the counts
+    (``index_add_``) and their running sums stay on the device. The gate,
+    up and down products are grouped products over the sorted rows, each one
+    ``torch._grouped_mm`` with the group ends on the device (on the card
+    CUTLASS's sm90 grouped GEMM for bf16; on the CPU any float dtype, forward
+    and backward), the routing weight applied before the down product; an
+    expert with no rows reads none of its weights.
+    The combine is the capacity path's: each token's k outputs added left to
+    right in ascending expert order, in the experts' dtype. On the card
+    nothing here waits for the device."""
+    T, D = xt.shape
+    E = p.router.shape[1]
+    n = T * n_top
+    dev = xt.device
+    with span("moe.route", tokens=T, assignments=n):
+        topl, topi = torch.topk(xt.float() @ p.router, n_top, dim=-1)   # (T, k)
+        topi, asc = torch.sort(topi, dim=-1)            # each token's experts ascending
+        w = torch.softmax(topl.gather(-1, asc), dim=-1)
+        flat_e = topi.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        counts = torch.zeros(E, dtype=torch.int32, device=dev).index_add_(
+            0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        # each assignment's row in the sorted order, (T, k)
+        place = torch.empty_like(order).scatter_(0, order, torch.arange(n, device=dev))
+        place = place.view(T, n_top)
+    with span("moe.experts", tokens=T, experts=E):
+        xs = xt[order // n_top]
+        h = F.silu(torch._grouped_mm(xs, p.gate, offs=ends)) \
+            * torch._grouped_mm(xs, p.up, offs=ends)
+        ys = torch._grouped_mm(h * w.reshape(-1)[order, None].to(h.dtype), p.down, offs=ends)
+        y = ys[place[:, 0]]
+        for j in range(1, n_top):
+            y = y + ys[place[:, j]]
+    return y
+
+
 class _SumOver(torch.autograd.Function):
     """All-reduce (sum) over ``group`` forward; the gradient, the same on
     every rank of the group, passes unchanged (the reference's ``psum``
@@ -195,14 +240,19 @@ def _moe_sharded(p, x, n_top, capacity_factor, mesh):
     return fn(p.router, p.gate, p.up, p.down, x)
 
 
-def moe_apply(p, x, *, n_top: int, capacity_factor: float = 1.25):
+def moe_apply(p, x, *, n_top: int, capacity_factor: float = 1.25, dropless: bool = False):
     """x: (B, S, D) -> ((B, S, D), aux). Without a mesh the B·S tokens are
     dispatched together (the reference's unpartitioned branch); under a
-    mesh with a ``model`` axis, per data shard (``_moe_sharded``). The
-    shared experts, if present, are added."""
+    mesh with a ``model`` axis, per data shard (``_moe_sharded``). With
+    ``dropless`` (the ``moe_hybrid`` family's), by ``dropless_ffn``,
+    unsharded, and aux is 0.0. The shared experts, if present, are added."""
     B, S, D = x.shape
     mesh = current_mesh()
-    if mesh is None or "model" not in mesh_shape(mesh):
+    if dropless:
+        if mesh is not None and "model" in mesh_shape(mesh):
+            raise NotImplementedError("moe_apply: the dropless dispatch has no sharded form")
+        y, aux = dropless_ffn(p, x.reshape(B * S, D), n_top).reshape(B, S, D), 0.0
+    elif mesh is None or "model" not in mesh_shape(mesh):
         y, aux = _dispatch_ffn(p, x.reshape(B * S, D), n_top, capacity_factor)
         y = y.reshape(B, S, D)
     else:

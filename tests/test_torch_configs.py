@@ -1,5 +1,6 @@
 """Every config of the port equals the JAX package's, field by field, with
-``dtype`` mapped from jnp to torch."""
+``dtype`` mapped from jnp to torch; the port's own fields (for its port-only
+configs) hold their defaults there."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -24,7 +25,10 @@ def test_registry_matches():
 @pytest.mark.parametrize("which", ["get_config", "get_smoke_config"])
 def test_config_matches_jax(arch, which):
     j, t = fields(getattr(jc, which)(arch)), fields(getattr(tc, which)(arch))
-    assert set(j) == set(t)
+    own = set(t) - set(j)
+    assert set(j) <= set(t)
+    defaults = fields(tc.ModelConfig(name="x", family="dense", n_layers=1, d_model=8))
+    assert {k: t.pop(k) for k in own} == {k: defaults[k] for k in own}
     assert t.pop("dtype") == DTYPE_MAP[j.pop("dtype")]
     assert t == j
     assert getattr(tc, which)(arch).param_count() == getattr(jc, which)(arch).param_count()
@@ -69,3 +73,15 @@ def test_full_configs_match_assignment():
     assert tc.get_config("qwen2-moe-a2.7b").n_experts == 60
     assert tc.get_config("mamba2-2.7b").ssm_state == 128
     assert tc.get_config("zamba2-1.2b").ssm_state == 64
+
+
+def test_port_only_configs():
+    """granite-4.0-h-small: registered beside the JAX package's list, not in
+    it; 32.2 B parameters with ~8.8 B active a token (published: 32B-A9B)."""
+    assert tc.PORT_ARCHS == tc.ARCHS + ["granite-4.0-h-small"]
+    c = tc.get_config("granite-4.0-h-small")
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim, c.vocab_size) == \
+        (40, 4096, 32, 8, 128, 100352)
+    assert (c.n_experts, c.n_experts_per_tok, c.moe_d_ff, c.shared_d_ff) == (72, 10, 768, 1536)
+    assert c.param_count() == pytest.approx(32.2e9, rel=0.005)
+    assert c.active_param_count() == pytest.approx(8.8e9, rel=0.01)

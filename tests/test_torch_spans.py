@@ -176,6 +176,29 @@ def test_decode_one_range_a_step(arch):
     assert not host_ranges(prof, "optim.adamw")
 
 
+def test_moe_spans_once_a_layer_a_call():
+    """``moe.route`` and ``moe.experts`` of the dropless dispatch: each once
+    per MoE layer per prefill or decode step, in that order, with their
+    attrs (Python ints) on the recorder and as host ranges."""
+    cfg = get_smoke_config("granite-4.0-h-small").replace(dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16))
+    L, k, E = cfg.n_layers, cfg.n_experts_per_tok, cfg.n_experts
+    with IORuntime(cluster(), backend=RealBackend(), trace=True) as rt:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            logits, state = model.prefill(params, {"tokens": prompt}, 20)
+            model.decode_step(params, state, logits.argmax(-1))
+    moe = [e for e in spans_of(rt) if e["cat"] == "moe"]
+    assert [e["name"] for e in moe] == ["moe.route", "moe.experts"] * (2 * L)
+    for call, T in ((moe[:2 * L], 32), (moe[2 * L:], 2)):
+        route, experts = call[0::2], call[1::2]
+        assert all(e["args"]["tokens"] == T and e["args"]["assignments"] == T * k
+                   for e in route)
+        assert all(e["args"]["tokens"] == T and e["args"]["experts"] == E for e in experts)
+    assert len(host_ranges(prof, "moe.route")) == len(host_ranges(prof, "moe.experts")) == 2 * L
+
+
 @pytest.mark.parametrize("io_aware", [True, False], ids=["async", "sync"])
 def test_chip_smoke_reads_the_save_from_the_spans(tmp_path, monkeypatch, io_aware):
     """``chip_smoke.train_run`` itself, on the CPU (its ``torch.cuda`` calls
