@@ -973,7 +973,10 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
     with every launch count set to 0 just before and read just after.
     Checks every logits tensor, the completions and the trace; returns the
     launch counts, the peak of allocated device memory (bytes) and serve's
-    output."""
+    output, which gains ``replay``: how often the decode step was captured,
+    replayed from its CUDA graph and copied into the graph's buffers
+    (``models.replay.counts``, set to 0 beside the launch counts)."""
+    from repro_torch.models import replay
     kw = {**SERVE, **override}
     trace = ROOT / "build" / "chip_smoke" / f"serve_trace_{cfg.name}.jsonl"
     trace.parent.mkdir(parents=True, exist_ok=True)
@@ -996,9 +999,11 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
     torch.cuda.reset_peak_memory_stats()
     try:
         zero(kernels)
+        replay.counts.update(dict.fromkeys(replay.counts, 0))
         out = serve_mod.serve(cfg, trace_path=str(trace), device="cuda", **kw)
         torch.cuda.synchronize()
         launches = counts(kernels)
+        out["replay"] = dict(replay.counts)
     finally:
         serve_mod.Model = Model
     peak = torch.cuda.max_memory_allocated()
@@ -1008,7 +1013,7 @@ def serve_path(torch, serve_mod, Model, cfg, kernels, **override):
           f"{out['new_tokens']} new tokens, {out['tokens_per_s']:.2f} tok/s, "
           f"wall {out['wall_s']:.3f} s, p50 {out['p50_s']:.4f} s, "
           f"p99 {out['p99_s']:.4f} s, peak memory {peak / 2**30:.3f} GiB, "
-          f"launches {launches}, trace rows {len(trace_rows)}")
+          f"launches {launches}, decode replay {out['replay']}, trace rows {len(trace_rows)}")
     if not finite or not torch.stack(finite).all():
         raise AssertionError(f"{cfg.name}: serve produced non-finite logits")
     if out["requests"] != kw["n_requests"] or len(trace_rows) != kw["n_requests"]:

@@ -20,16 +20,14 @@ KV caches, stacked likewise, and ``pos``. The prefill leaves each conv
 window at the prompt's last K-1 inputs, so that decode continues the prompt
 as the published model does. Prompt lengths are multiples of
 ``cfg.ssm_chunk``. On the card a decode step is replayed from a CUDA graph
-(``_Replay``).
+(``replay.py``).
 """
 from __future__ import annotations
 
 import math
-import weakref
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
 
 from ..distributed import shard_activation
 from ..distributed.sharding import assign, place_state
@@ -39,6 +37,7 @@ from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      softmax_xent)
 from .mamba2 import MAMBA_CACHE_AXES, Mamba2, MambaCache, mamba2_decode, mamba2_forward
 from .moe import MoE, moe_apply
+from . import replay
 from .transformer import _head_dim, _logits
 from .zamba2 import HybridState
 
@@ -213,61 +212,18 @@ def _step(params, cfg, state: HybridState, tokens):
     return _out(params, cfg, h), HybridState(m, a, pos + 1)
 
 
-class _Replay:
-    """One decode step at one shape, captured as a CUDA graph: the host
-    issues one launch for all of the step's kernels (~2,400 at 20 layers),
-    so that the device and not the host sets the pace. The graph reads and writes fixed buffers:
-    the caches of the state it was captured on, the tokens and the position.
-    A step on another state (the next prompt's prefill) first copies that
-    state's caches into the buffers; the state a step returns holds them, so
-    pass that on, as every caller does. A state whose caches are the buffers
-    but that a later state's step has overwritten is refused."""
-
-    def __init__(self, params, cfg, state: HybridState, tokens, pool):
-        self.caches = (state.mamba, state.attn)
-        self.tokens = tokens.clone()
-        self.pos = torch.zeros(1, dtype=torch.int64, device=tokens.device)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-            self.logits, _ = _step(params, cfg, HybridState(*self.caches, self.pos), self.tokens)
-
-    def __call__(self, state: HybridState, tokens):
-        if state.mamba is not self.caches[0] or state.attn is not self.caches[1]:
-            bufs = [*self.caches[0], *self.caches[1]]
-            given = [*state.mamba, *state.attn]
-            if any(t.data_ptr() == b.data_ptr() for t, b in zip(given, bufs)):
-                raise RuntimeError("decode_step: a later state's steps have overwritten this "
-                                   "state's caches (on the card one state a shape steps at a time)")
-            for b, t in zip(bufs, given):
-                b.copy_(t)
-            self.caches = (MambaCache(*bufs[:3]), KVCache(*bufs[3:]))
-        self.pos.fill_(state.pos)
-        self.tokens.copy_(tokens)
-        self.graph.replay()
-        return self.logits.clone(), HybridState(*self.caches, state.pos + 1)
+def _caches(state: HybridState) -> list:
+    return [*state.mamba, *state.attn]
 
 
-#: each parameter module's replayed decode steps, by shape: False after the
-#: first step at a shape, a ``_Replay`` from the second; they go with the module
-_REPLAYS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+def _rebuild(bufs, pos) -> HybridState:
+    return HybridState(MambaCache(*bufs[:3]), KVCache(*bufs[3:]), pos)
 
 
 def granite_decode_step(params, cfg, state: HybridState, tokens):
     """tokens: (B,) int. One decode step. Returns (logits, new state). Off the
     card, or under a mesh, the caches are updated in place. On the card the
-    first step at a shape runs as issued (it loads the step's kernels and
-    libraries), the second captures the step (``_Replay``), and every step
-    from then on replays it."""
-    if not tokens.is_cuda or isinstance(state.mamba.h, DTensor):
-        return _step(params, cfg, state, tokens)
-    replays = _REPLAYS.setdefault(params, {})
-    key = (tokens.device, tuple(tokens.shape), *(tuple(t.shape) for t in (*state.mamba,
-                                                                          *state.attn)))
-    r = replays.get(key)
-    if r is None:
-        replays[key] = False
-        return _step(params, cfg, state, tokens)
-    if r is False:
-        pool = next((x.graph.pool() for x in replays.values() if x), None)
-        r = replays[key] = _Replay(params, cfg, state, tokens, pool)
-    return r(state, tokens)
+    step is replayed from a CUDA graph from a shape's second step
+    (``replay.decode_step``), its position a (1,) device tensor that
+    ``_decode_attend`` writes by."""
+    return replay.decode_step(_step, _caches, _rebuild, params, cfg, state, tokens)

@@ -23,6 +23,7 @@ from .layers import (_init, embed_init, embed_lookup, pad_vocab, remat, rmsnorm,
                      rmsnorm_init, softmax_xent)
 from .mamba2 import (MAMBA_CACHE_AXES, MambaCache, SSMLayer, mamba2_decode, mamba2_forward,
                      ssm_layer)
+from . import replay
 from .transformer import (DecodeState, Transformer, _embed_inputs, _logits, _scan_layers,
                           init_cache, transformer_decode_step, transformer_loss,
                           transformer_prefill)
@@ -101,9 +102,9 @@ def ssm_prefill(params, cfg, batch, cache_len):
     return logits, SSMState(caches, batch["tokens"].shape[1])
 
 
-def ssm_decode_step(params, cfg, state: SSMState, tokens):
-    """tokens: (B,) int. One decode step. Returns (logits, new state); the
-    caches are updated in place."""
+def _ssm_issued_step(params, cfg, state: SSMState, tokens):
+    """One decode step as issued op by op; the caches are updated in place,
+    and ``state.pos`` is only counted on."""
     h = shard_activation(embed_lookup(params.embed, tokens))
     c = state.caches
     for i, lp in enumerate(params.layers):
@@ -112,6 +113,19 @@ def ssm_decode_step(params, cfg, state: SSMState, tokens):
         h = h + out
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     return _logits(params, cfg, h), SSMState(c, state.pos + 1)
+
+
+def _ssm_rebuild(bufs, pos) -> SSMState:
+    return SSMState(MambaCache(*bufs), pos)
+
+
+def ssm_decode_step(params, cfg, state: SSMState, tokens):
+    """tokens: (B,) int. One decode step. Returns (logits, new state). Off the
+    card, or under a mesh, the caches are updated in place. On the card the
+    step is replayed from a CUDA graph from a shape's second step
+    (``replay.decode_step``)."""
+    return replay.decode_step(_ssm_issued_step, lambda s: s.caches, _ssm_rebuild, params, cfg,
+                              state, tokens)
 
 
 # --------------------------------------------------------------------------

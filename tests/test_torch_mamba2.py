@@ -20,6 +20,7 @@ from repro_torch.convert import from_jax, to_jax
 from repro_torch.launch.serve import serve
 from repro_torch.models import Model
 from repro_torch.models import mamba2 as tm2
+from repro_torch.models import model as tmodel
 
 ARCH = "mamba2-2.7b"
 SEED = 0
@@ -135,6 +136,30 @@ def test_prefill_and_decode_match_jax(use_kernel):
         close(ts.caches.h, js.caches.h, msg=f"h after decode step {t}")
     close(ts.caches.conv_x, js.caches.conv_x)
     assert ts.pos == int(js.pos) == S + steps
+
+
+def test_issued_decode_step_matches_jax():
+    """The step as issued op by op, which runs off the card, at the first
+    step of a shape on it and under a mesh (the card replays it from a CUDA
+    graph after that), against the JAX decode step: logits and every cache
+    after each of three steps."""
+    jcfg, tcfg = configs()
+    jp = jax_params(jcfg)
+    tp = from_jax(tcfg, jp, device="cpu")
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, jcfg.vocab_size, size=(2, 16)).astype(np.int32)
+    jm = JaxModel(jcfg)
+    jl, js = jm.prefill(jp, {"tokens": jnp.asarray(prompt)}, 19)
+    _, ts = Model(tcfg).prefill(tp, {"tokens": torch.from_numpy(prompt)}, 19)
+    nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+    for t in range(3):
+        jl, js = jm.decode_step(jp, js, jnp.asarray(nxt))
+        tl, ts = tmodel._ssm_issued_step(tp, tcfg, ts, torch.from_numpy(nxt))
+        close(tl, jl, msg=f"decode step {t}")
+        for name in ("conv_x", "conv_bc", "h"):
+            close(getattr(ts.caches, name), getattr(js.caches, name), msg=f"{name}, step {t}")
+        nxt = np.asarray(jl).argmax(-1).astype(np.int32)
+    assert ts.pos == int(js.pos) == 19
 
 
 # fp16 end to end: both sides round every activation to fp16 (2^-11), in
